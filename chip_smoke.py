@@ -4,23 +4,31 @@
     python3 chip_smoke.py [--seed 0] [--reps 20]
 
 Phases, each of which raises (exit code 1) on failure:
-  1. environment: torch/CUDA versions, the card's name and power limit;
-     TF32 is switched off for matmuls and convolutions;
+  1. environment: torch/CUDA versions, the card's name and power limit,
+     and the card's peak rates from NVIDIA's data sheet (an unknown card
+     raises); TF32 is switched off for matmuls and convolutions;
   2. build every CUDA kernel of the port from `poco_tpu_torch/csrc/`
      (nvcc, in parallel), printing the `-Xptxas -v` report;
-  3. kernel check: each kernel against its plain torch version on the
-     card at the main path's shapes and at a ragged shape, with timings
-     (CUDA events) and the card's bound for the same work;
+  3. kernel check: the skinning kernel (`skinning`, 3xTF32 tensor cores)
+     and its fp32-FMA yardstick (`skinning_simt`) against the plain torch
+     version on the card, at the main path's shapes (B = 1, 8, 128 at
+     V=6890) and a ragged one;
   4. main path at full width: POCO-CLIFF (HRNet-W48-cls, configs/
      poco_cliff.yaml) with seeded random weights and a V=6890 synthetic
      SMPL answers `detect_forward` requests of 1, 8 and 128 boxes on a
-     720x1280 image; every kernel must launch once per request; a 2-box
-     request is held against the same weights on the CPU;
+     720x1280 image; `skinning` must launch once per request and
+     `skinning_simt` never; a 2-box request is held against the same
+     weights on the CPU;
   5. crops/s at batch 128, fp32, with the kernel and, in turns, with the
      plain skinning in its place (the yardstick);
   6. a torch.profiler trace of 128-crop requests: device busy and idle
      share, the skinning kernel's share, the top device kernels, and the
-     SMPL stage alone with the kernel and with the plain skinning.
+     SMPL stage alone with the kernel and with the plain skinning;
+  7. kernel timing, last (after CUDA-graph capture the eager launches of
+     phases 5 and 6 would run slower): both kernels at phase 3's shapes,
+     in turns, from CUDA events around CUDA-graph replays, with the
+     inputs hot in L2 and cold (rotating over sets larger than L2),
+     beside the card's bound for the same work.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -31,6 +39,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,7 +55,7 @@ from poco_tpu_torch.models.poco import build_poco_cliff
 from poco_tpu_torch.ops import kernels
 from poco_tpu_torch.ops.preprocess import preprocess_crops
 from poco_tpu_torch.ops.rotation import axis_angle_to_rotmat
-from poco_tpu_torch.ops.skinning import skinning, skinning_reference
+from poco_tpu_torch.ops.skinning import skinning, skinning_reference, skinning_simt
 from poco_tpu_torch.smpl import lbs as lbs_module
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.smpl.lbs import smpl_forward
@@ -54,9 +63,24 @@ from poco_tpu_torch.utils.weights import calibrate_batchnorm, randomize_batchnor
 
 REPO = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM rate and fp32 (non-tensor-core) peak.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
+
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    """Published peaks of one card at its full power limit, dense rates."""
+
+    bytes_per_s: float      # device memory
+    fp32_flop_per_s: float  # fp32 outside the tensor cores
+    tf32_flop_per_s: float  # TF32 on the tensor cores
+
+
+# NVIDIA's data sheets, keyed by the name nvidia-smi prints (sparse
+# tensor rates halved to dense). A card not listed raises.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peaks(3.35e12, 67e12, 495e12),  # H100 SXM
+    "NVIDIA H100 PCIe": Peaks(2.0e12, 51e12, 378e12),
+    "NVIDIA H100 NVL": Peaks(3.9e12, 60e12, 417.5e12),
+    "NVIDIA H200": Peaks(4.8e12, 67e12, 494.5e12),  # H200 SXM
+}
 
 SKIN_TOL = 1e-4       # kernel vs plain, fp32 sums in another order
 HEAD_TOL = 2e-3       # pred_cam / pred_shape / var_pose, card vs CPU
@@ -83,7 +107,16 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_environment() -> str:
+def card_peaks(name: str) -> Peaks:
+    if name not in PEAKS:
+        raise RuntimeError(
+            f"no published peaks for {name!r}: add its data sheet figures to "
+            f"PEAKS (known: {sorted(PEAKS)})"
+        )
+    return PEAKS[name]
+
+
+def phase_environment() -> tuple[str, Peaks]:
     print("== 1. environment")
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
@@ -94,11 +127,14 @@ def phase_environment() -> str:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
         f"{torch.cuda.get_device_name(0)}, power limit not read"
     )
-    print(f"card: {card}")
+    peaks = card_peaks(card.split(",")[0].strip())
+    print(f"card: {card}; peaks used: {peaks.bytes_per_s / 1e12:g} TB/s, "
+          f"fp32 {peaks.fp32_flop_per_s / 1e12:g} TFLOP/s, "
+          f"TF32 {peaks.tf32_flop_per_s / 1e12:g} TFLOP/s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
-    return card
+    return card, peaks
 
 
 def phase_build() -> None:
@@ -124,45 +160,142 @@ def skinning_inputs(batch: int, num_verts: int, seed: int):
     return [torch.from_numpy(a).cuda() for a in (w, tfms, vp)]
 
 
-def skinning_bound_ms(batch: int, num_verts: int) -> tuple[float, str]:
-    """Least time for the work: bytes once each way vs fp32 operations."""
-    nbytes = 4 * (num_verts * 24 + batch * 24 * 16 + 2 * batch * num_verts * 3)
-    flops = (24 * 12 * 2 + 18) * batch * num_verts
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def skinning_bytes(batch: int, num_verts: int) -> int:
+    """W, the transforms and v_posed read once, out written once."""
+    return 4 * (num_verts * 24 + batch * 24 * 16 + 2 * batch * num_verts * 3)
 
 
-def phase_kernel_check() -> dict:
+def skinning_bound(batch: int, num_verts: int, peaks: Peaks) -> dict:
+    """Least time for the work: bytes once each way against operations on
+    the fastest engine that keeps fp32 accuracy, the tensor cores with a
+    3xTF32 split (three TF32 products of the 24 x 12 blend) plus the
+    affine in fp32. `fp32_fma_ms` is the blend and affine all in fp32 FMA,
+    the operation bound of the fp32-FMA kernel."""
+    t_bytes = skinning_bytes(batch, num_verts) / peaks.bytes_per_s * 1e3
+    t_ops = (3 * 2 * 24 * 12 * batch * num_verts / peaks.tf32_flop_per_s
+             + 18 * batch * num_verts / peaks.fp32_flop_per_s) * 1e3
+    t_fma = (24 * 12 * 2 + 18) * batch * num_verts / peaks.fp32_flop_per_s * 1e3
+    return {
+        "ms": max(t_bytes, t_ops),
+        "by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes,
+        "ops_ms": t_ops,
+        "fp32_fma_ms": t_fma,
+    }
+
+
+def cold_sets(args, l2_bytes: int = 50 * 2**20):
+    """Copies of one input set at distinct addresses, at least 4 and more
+    than twice the L2 in all, so that none is in L2 when its turn comes."""
+    batch, num_verts = args[2].shape[:2]
+    n = max(4, math.ceil(2 * l2_bytes / skinning_bytes(batch, num_verts)))
+    return [[a.clone() for a in args] for _ in range(n)]
+
+
+def graph_ms(fn, arg_sets, replays: int, keep_outputs: bool) -> float:
+    """Mean device time of one call of `fn`, from CUDA events around
+    replays of a CUDA graph that holds one call for each input set in
+    turn, so that the host's cost of a launch is not counted (the gaps
+    between the graph's kernels are). With `keep_outputs` every call
+    writes a fresh output, so no call finds its output in L2."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(graph):
+        for a in arg_sets:
+            out = fn(*a)
+            if keep_outputs:
+                outs.append(out)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del out, outs, graph
+    return start.elapsed_time(end) / (replays * len(arg_sets))
+
+
+def hot_ms(fn, args, calls: int = 200) -> float:
+    """Device time of one call on inputs that stay in L2."""
+    return graph_ms(fn, [args] * 20, replays=calls // 20, keep_outputs=False)
+
+
+def cold_ms(fn, sets, calls: int = 40) -> float:
+    """Device time of one call on inputs and outputs that are not in L2."""
+    return graph_ms(fn, sets, replays=max(1, calls // len(sets)), keep_outputs=True)
+
+
+SKIN_SHAPES = ((128, 6890), (8, 6890), (1, 6890), (3, 1001))
+
+
+KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
+
+
+def phase_kernel_check() -> dict[str, float]:
+    """`skinning` (v2) and `skinning_simt` (v1) against the plain version
+    at each shape; returns each one's largest error."""
     print("== 3. kernel check")
-    record = None
-    for batch, num_verts in ((128, 6890), (3, 1001)):
+    worst = {label: 0.0 for label in KERNELS_UNDER_TEST}
+    for batch, num_verts in SKIN_SHAPES:
         args = skinning_inputs(batch, num_verts, seed=batch + num_verts)
-        out = skinning(*args)
-        torch.cuda.synchronize()
-        err = float((out - skinning_reference(*args)).abs().max())
-        print(f"skinning B={batch} V={num_verts}: max_abs_err {err:.3e} "
-              f"(tolerance {SKIN_TOL})")
-        check(err <= SKIN_TOL, f"skinning disagrees with its plain version: {err}")
-        if record is None:  # the main path's shape
-            bound, bound_by = skinning_bound_ms(batch, num_verts)
-            record = {
-                "name": "skinning",
-                "route": "cuda",
-                "source": "poco_tpu_torch/csrc/skinning.cu",
-                "replaces": "poco_tpu/ops/pallas_lbs.py:87",
-                "launches": None,
-                "max_abs_err": err,
-                "ms": cuda_ms(lambda: skinning(*args), iters=200),
-                "plain_ms": cuda_ms(lambda: skinning_reference(*args), iters=50),
-                "bound_ms": bound,
-                "bound_by": bound_by,
-                "library_ms": None,
+        ref = skinning_reference(*args)
+        for label, fn in KERNELS_UNDER_TEST.items():
+            out = fn(*args)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            print(f"skinning {label} B={batch} V={num_verts}: max_abs_err "
+                  f"{err:.3e} (tolerance {SKIN_TOL}, rtol 0)")
+            check(err <= SKIN_TOL, f"skinning {label} disagrees with its plain version: {err}")
+            worst[label] = max(worst[label], err)
+    return worst
+
+
+def phase_kernel_timing(peaks: Peaks) -> dict:
+    """v2 and v1 timed hot and cold at each shape, in turns v2, v1, v1,
+    v2, beside the bound. It runs last: once a CUDA graph has been
+    captured, the process's eager launches run slower (a 128-crop request
+    about 2% longer on an H100), so phases 5 and 6 must come first."""
+    print("== 7. kernel timing")
+    times = None
+    for batch, num_verts in SKIN_SHAPES:
+        args = skinning_inputs(batch, num_verts, seed=batch + num_verts)
+        sets = cold_sets(args)
+        hot = {k: [] for k in KERNELS_UNDER_TEST}
+        cold = {k: [] for k in KERNELS_UNDER_TEST}
+        for label in ("v2", "v1", "v1", "v2"):
+            fn = KERNELS_UNDER_TEST[label]
+            hot[label].append(hot_ms(fn, args))
+            cold[label].append(cold_ms(fn, sets))
+        plain_hot = hot_ms(skinning_reference, args, calls=40)
+        plain_cold = cold_ms(skinning_reference, sets, calls=len(sets))
+        del sets
+        bound = skinning_bound(batch, num_verts, peaks)
+        print(f"skinning B={batch} V={num_verts}: bound {bound['ms']:.5f} ms "
+              f"({bound['by']}: bytes {bound['bytes_ms']:.5f}, 3xTF32 + fp32 affine "
+              f"{bound['ops_ms']:.5f}; fp32 FMA alone {bound['fp32_fma_ms']:.5f})")
+        for label in KERNELS_UNDER_TEST:
+            for kind, ts in (("hot", hot[label]), ("cold", cold[label])):
+                mean = statistics.fmean(ts)
+                print(f"  {label} {kind:4s} {mean:.5f} ms (turns {ts[0]:.5f}, "
+                      f"{ts[1]:.5f}) = {bound['ms'] / mean:.3f} of bound")
+        print(f"  plain hot {plain_hot:.5f} ms, cold {plain_cold:.5f} ms; "
+              "no single PyTorch call computes it")
+        if times is None:  # the main path's largest request
+            times = {
+                "ms": statistics.fmean(hot["v2"]),
+                "cold_ms": statistics.fmean(cold["v2"]),
+                "earlier_ms": statistics.fmean(hot["v1"]),
+                "earlier_cold_ms": statistics.fmean(cold["v1"]),
+                "plain_ms": plain_hot,
+                "bound_ms": bound["ms"],
+                "bound_by": bound["by"],
             }
-            print(f"skinning B={batch} V={num_verts}: kernel {record['ms']:.4f} ms, "
-                  f"plain {record['plain_ms']:.4f} ms, bound {bound:.4f} ms "
-                  f"({bound_by}); no single PyTorch call computes it")
-    return record
+    return times
 
 
 def random_boxes(rng, n: int, h: int, w: int):
@@ -199,12 +332,14 @@ def phase_main_path(seed: int) -> dict:
     print(f"model: {n_params} parameters; SMPL V={smpl.v_template.shape[0]}")
 
     requests = [random_boxes(rng, n, h, w) for n in (1, 8, 128)]
-    skinning.launches = 0
+    skinning.launches = skinning_simt.launches = 0
     outputs = [detect_forward(model, smpl, image, c, s) for c, s in requests]
     torch.cuda.synchronize()
     launches = skinning.launches
-    print(f"requests {[len(c) for c, _ in requests]}: skinning launches {launches}")
+    print(f"requests {[len(c) for c, _ in requests]}: skinning launches {launches}, "
+          f"skinning_simt launches {skinning_simt.launches}")
     check(launches == len(requests), "skinning must launch once per request")
+    check(skinning_simt.launches == 0, "the yardstick kernel ran on the main path")
     for (c, _), out in zip(requests, outputs):
         n = len(c)
         expect = {
@@ -312,7 +447,7 @@ def phase_profile(ctx: dict) -> None:
         busy += max(0.0, s1 - max(s0, end))
         end = max(end, s1)
         by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
-    skin_us = sum(t for name, t in by_name.items() if "skin_kernel" in name)
+    skin_us = sum(t for name, t in by_name.items() if "skin_tc_kernel" in name)
     print(f"device busy {busy / n / 1e3:.3f} ms per request of {wall_us / n / 1e3:.3f} "
           f"ms wall: busy share {busy / wall_us:.4f}, idle share {1 - busy / wall_us:.4f}")
     print(f"skinning kernel {skin_us / n / 1e3:.4f} ms per request = "
@@ -329,13 +464,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    card = phase_environment()
+    card, peaks = phase_environment()
     phase_build()
-    record = phase_kernel_check()
+    errs = phase_kernel_check()
     ctx = phase_main_path(args.seed)
-    record["launches"] = ctx["launches"]
     phase_throughput(ctx, args.reps, card)
     phase_profile(ctx)
+    times = phase_kernel_timing(peaks)
+    record = {
+        "name": "skinning",
+        "route": "cuda",
+        "source": "poco_tpu_torch/csrc/skinning.cu",
+        "replaces": "poco_tpu/ops/pallas_lbs.py:87",
+        "launches": ctx["launches"],
+        "max_abs_err": errs["v2"],
+        **times,
+        "library_ms": None,
+    }
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({
         "ok": True,

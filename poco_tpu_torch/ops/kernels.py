@@ -21,7 +21,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-SOURCES = {"skinning": "skinning.cu"}
+SOURCES = {"skinning": "skinning.cu", "skinning_simt": "skinning_simt.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
