@@ -4,8 +4,9 @@ Port of `poco_tpu.models.backbones.common` without its TPU layout
 rewrites (lane-padded convs and BN, the space-to-depth stem): those
 compute the same math on the same logical parameter shapes, which these
 plain modules hold. Attribute names follow the reference torch modules
-(pocolib/models/backbone/hrnet_cls.py), so a reference state_dict loads
-as it is. Symmetric `k // 2` padding, BN eps 1e-5 and momentum 0.1.
+(pocolib/models/backbone/{hrnet,hrnet_cls,resnet}.py, torchvision), so a
+reference state_dict loads as it is. Symmetric `k // 2` padding, BN eps
+1e-5 and momentum 0.1.
 """
 
 from __future__ import annotations
@@ -55,17 +56,23 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 -> 1x1 residual block (expansion 4)."""
+    """1x1 -> 3x3 -> 1x1 residual block (expansion 4). `groups` and
+    `base_width` follow torchvision, so the same block makes the ResNeXt
+    and wide-ResNet trunks."""
 
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 groups: int = 1, base_width: int = 64):
         super().__init__()
-        self.conv1 = conv(inplanes, planes, 1, padding=0)
-        self.bn1 = batch_norm(planes)
-        self.conv2 = conv(planes, planes, 3, stride)
-        self.bn2 = batch_norm(planes)
-        self.conv3 = conv(planes, planes * 4, 1, padding=0)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = conv(inplanes, width, 1, padding=0)
+        self.bn1 = batch_norm(width)
+        self.conv2 = nn.Conv2d(
+            width, width, 3, stride, 1, groups=groups, bias=False
+        )
+        self.bn2 = batch_norm(width)
+        self.conv3 = conv(width, planes * 4, 1, padding=0)
         self.bn3 = batch_norm(planes * 4)
         self.downsample = downsample
 
@@ -77,20 +84,31 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-def ResLayer(block, inplanes: int, planes: int, num_blocks: int, stride: int = 1):
+def ResLayer(
+    block, inplanes: int, planes: int, num_blocks: int, stride: int = 1,
+    groups: int = 1, base_width: int = 64,
+):
     """Sequence of residual blocks, torch `_make_layer` equivalent: the
-    first block gets a 1x1 conv + BN `downsample` where the shape changes."""
+    first block gets a 1x1 conv + BN `downsample` where the shape changes.
+    `groups` / `base_width` go to Bottleneck blocks only."""
     out = planes * block.expansion
     downsample = None
     if stride != 1 or inplanes != out:
         downsample = nn.Sequential(
             conv(inplanes, out, 1, stride, padding=0), batch_norm(out)
         )
-    layers = [block(inplanes, planes, stride, downsample)]
-    layers += [block(out, planes) for _ in range(1, num_blocks)]
+    extra = {"groups": groups, "base_width": base_width} if block is Bottleneck else {}
+    layers = [block(inplanes, planes, stride, downsample, **extra)]
+    layers += [block(out, planes, **extra) for _ in range(1, num_blocks)]
     return nn.Sequential(*layers)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Exact integer-factor nearest upsampling (NCHW)."""
     return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize with align_corners=True (NCHW): output pixel i
+    samples input coordinate i * (in - 1) / (out - 1)."""
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=True)

@@ -1,12 +1,19 @@
-"""POCO uncertainty head, `feat-pose-net` mode (torch).
+"""POCO uncertainty head: per-joint variance from pose-head features (torch).
 
-Port of `poco_tpu.models.heads.poco_uncert.PocoUncertHead` for the CLIFF
-configuration (reference pocolib/models/head/poco_head.py:14-154):
-separate sigmoid encoders for the flattened predicted pose and for the
-head features, concatenated (features first), then `uncert_fc1` with the
-output activation gives the per-joint `var_pose`. Rows where
-`gt_pose_cond_mask` is set feed the ground-truth pose instead of the
-prediction (the reference's GT_POSE_COND calibration).
+Port of `poco_tpu.models.heads.poco_uncert.PocoUncertHead` (reference
+pocolib/models/head/poco_head.py:14-154), in its three input modes:
+
+  * "feat"          MLP over the pose head's `uncert_feat`;
+  * "feat-pose"     the flattened predicted pose (24 * 9) concatenated
+                    to the features before the MLP (POCO-PARE);
+  * "feat-pose-net" separate sigmoid encoders for the pose and for the
+                    features, concatenated (features first), then one
+                    projection (POCO-CLIFF).
+
+The MLP is `uncert_fc1..n`, each followed by dropout (when enabled) and
+the output activation. Rows where `gt_pose_cond_mask` is set feed the
+ground-truth pose instead of the prediction (the reference's
+GT_POSE_COND calibration).
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+UNCERT_INP_TYPES = ("feat", "feat-pose", "feat-pose-net")
 
 
 def num_uncert_outputs(loss_ver: str, sigma_dim: int, num_uncert_parts: int) -> int:
@@ -40,20 +49,28 @@ class PocoUncertHead(nn.Module):
         num_joints: int = 24,
     ):
         super().__init__()
-        if uncert_inp_type != "feat-pose-net":
-            raise NotImplementedError(
-                f"uncert_inp_type {uncert_inp_type!r}: only 'feat-pose-net' "
-                "(the POCO-CLIFF configuration) is ported"
+        if uncert_inp_type not in UNCERT_INP_TYPES:
+            raise ValueError(
+                f"uncert_inp_type {uncert_inp_type!r}: one of {UNCERT_INP_TYPES}"
             )
+        self.uncert_inp_type = uncert_inp_type
         self.activation_type = activation_type
         self.sigma_dim = sigma_dim if "norm_flow" in loss_ver else 1
         self.out_width = num_uncert_outputs(
             loss_ver, self.sigma_dim, num_joints - len(exclude_uncert_idx)
         )
-        width = num_neurons[0]
-        self.uncert_fc_poseNet = nn.Linear(num_joints * 9, width)
-        self.uncert_fc_featNet = nn.Linear(num_input_channels, width)
-        self.uncert_fc1 = nn.Linear(2 * width, self.out_width)
+        pose_width = num_joints * 9
+        if uncert_inp_type == "feat-pose-net":
+            width = num_neurons[0]
+            self.uncert_fc_poseNet = nn.Linear(pose_width, width)
+            self.uncert_fc_featNet = nn.Linear(num_input_channels, width)
+            widths = [2 * width, self.out_width]
+        else:
+            num_in = num_input_channels + (pose_width if uncert_inp_type == "feat-pose" else 0)
+            widths = [num_in, *num_neurons, self.out_width]
+        for i in range(len(widths) - 1):
+            setattr(self, f"uncert_fc{i + 1}", nn.Linear(widths[i], widths[i + 1]))
+        self.num_fc = len(widths) - 1
         self.dropout = nn.Dropout(0.5)
         self.use_dropout = use_dropout
 
@@ -80,18 +97,26 @@ class PocoUncertHead(nn.Module):
             {"var_pose": (B, P*sigma_dim), or (B, P, 3, 3) if sigma_dim==9}.
         """
         batch = uncert_feat.shape[0]
-        pose_inp = pred_pose.reshape(batch, -1)
-        if gt_pose_rotmat is not None and gt_pose_cond_mask is not None:
-            pose_inp = torch.where(
-                gt_pose_cond_mask[:, None], gt_pose_rotmat.reshape(batch, -1),
-                pose_inp,
-            )
-        pose_feats = torch.sigmoid(self.dropout(self.uncert_fc_poseNet(pose_inp)))
-        x = torch.sigmoid(self.dropout(self.uncert_fc_featNet(uncert_feat)))
-        x = self.uncert_fc1(torch.cat([x, pose_feats], dim=1))
-        if self.use_dropout:
-            x = self.dropout(x)
-        var_pose = self._act(x)[:, : self.out_width]
+        x = uncert_feat
+        if "pose" in self.uncert_inp_type:
+            pose_inp = pred_pose.reshape(batch, -1)
+            if gt_pose_rotmat is not None and gt_pose_cond_mask is not None:
+                pose_inp = torch.where(
+                    gt_pose_cond_mask[:, None], gt_pose_rotmat.reshape(batch, -1),
+                    pose_inp,
+                )
+            if self.uncert_inp_type == "feat-pose-net":
+                pose_feats = torch.sigmoid(self.dropout(self.uncert_fc_poseNet(pose_inp)))
+                x = torch.sigmoid(self.dropout(self.uncert_fc_featNet(x)))
+                x = torch.cat([x, pose_feats], dim=1)
+            else:
+                x = torch.cat([x, pose_inp], dim=1)
+        for i in range(1, self.num_fc + 1):
+            x = getattr(self, f"uncert_fc{i}")(x)
+            if self.use_dropout:
+                x = self.dropout(x)
+            x = self._act(x)
+        var_pose = x[:, : self.out_width]
         if self.sigma_dim == 9:
             var_pose = var_pose.reshape(batch, -1, 3, 3)
         return {"var_pose": var_pose}

@@ -1,19 +1,20 @@
-"""POCO-CLIFF composition: backbone -> CLIFF head -> SMPL -> uncertainty.
+"""POCO composition: backbone -> head -> SMPL -> uncertainty -> flow.
 
-Port of `poco_tpu.models.poco` for the `cliff` head (reference
-pocolib/models/poco.py:12-129). Submodules carry the reference names
-`backbone`, `head` and `uncert_head`, so their state_dict keys are the
-reference checkpoint's.
+Port of `poco_tpu.models.poco` (reference pocolib/models/poco.py:12-129
+and hmr.py, the plain-HMR baseline of METHOD=spin): every backbone and
+head family of the JAX registry except the two toy `tiny` backbones.
+Submodules carry the reference names `backbone`, `head`, `uncert_head`
+and `flow_head`, so their state_dict keys are the reference checkpoint's.
 
 Batch dict (the JAX package's layout):
     img          (B, 224, 224, 3)  normalized crop, NHWC
-    bbox_info    (B, 3)            CLIFF bbox descriptor
-    focal_length (B,)              full-image focal length
-    scale        (B,)              bbox height / 200
-    center       (B, 2)            bbox center (pixels)
-    orig_shape   (B, 2)            original (h, w)
-    gt_pose_rotmat    (B, 24, 3, 3)  optional, training only
-    gt_pose_cond_mask (B,)           optional, training only
+    bbox_info    (B, 3)            CLIFF bbox descriptor    [cliff head]
+    focal_length (B,)              full-image focal length  [cliff head]
+    scale        (B,)              bbox height / 200        [cliff head]
+    center       (B, 2)            bbox center (pixels)     [cliff head]
+    orig_shape   (B, 2)            original (h, w)          [cliff head]
+    gt_pose_rotmat    (B, 24, 3, 3)  optional: the flow head's log_phi
+    gt_pose_cond_mask (B,)           optional, GT_POSE_COND calibration
 """
 
 from __future__ import annotations
@@ -26,13 +27,30 @@ from torch import nn
 
 from ..device import resolve_device
 from ..smpl.lbs import SmplParams
-from ..smpl.model import smplcam_head
-from .backbones.hrnet import NUM_FEATURES, hrnet_w48_cls
+from ..smpl.model import smpl_head, smplcam_head
+from .backbones import resnet
+from .backbones.hrnet import hrnet_w32, hrnet_w48, hrnet_w48_cls, hrnet_w64
 from .heads.cliff import CliffHead
+from .heads.flow import FlowHead
+from .heads.hmr import HmrHead
+from .heads.pare import PareHead
 from .heads.poco_uncert import PocoUncertHead
 
-BACKBONES = {"hrnet_w48_cls": hrnet_w48_cls}
-BACKBONE_CHANNELS = {"hrnet_w48_cls": NUM_FEATURES}
+BACKBONES = {
+    "resnet18": resnet.resnet18,
+    "resnet34": resnet.resnet34,
+    "resnet50": resnet.resnet50,
+    "resnet101": resnet.resnet101,
+    "resnet152": resnet.resnet152,
+    "resnext50_32x4d": resnet.resnext50_32x4d,
+    "resnext101_32x8d": resnet.resnext101_32x8d,
+    "wide_resnet50_2": resnet.wide_resnet50_2,
+    "wide_resnet101_2": resnet.wide_resnet101_2,
+    "hrnet_w32": hrnet_w32,
+    "hrnet_w48": hrnet_w48,
+    "hrnet_w48_cls": hrnet_w48_cls,
+    "hrnet_w64": hrnet_w64,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,23 +103,33 @@ class PocoConfig:
 
 
 class POCO(nn.Module):
-    """POCO with the CLIFF head; `forward` is the inference graph."""
+    """POCO with a CLIFF, PARE or HMR head; `forward` is the inference
+    graph, plus the flow head's `log_phi` when the batch has a GT pose."""
 
     def __init__(self, cfg: PocoConfig = PocoConfig()):
         super().__init__()
-        if cfg.head_name != "cliff" or cfg.backbone_name not in BACKBONES:
+        if cfg.backbone_name not in BACKBONES:
             raise NotImplementedError(
-                f"backbone {cfg.backbone!r}: only "
-                f"{sorted(BACKBONES)} with the cliff head are ported"
+                f"backbone {cfg.backbone_name!r} is not ported (ported: "
+                f"{sorted(BACKBONES)}); the tiny backbones come with training"
+            )
+        if cfg.head_name not in ("cliff", "pare", "hmr"):
+            raise NotImplementedError(
+                f"head {cfg.head_name!r}: the heads are cliff, pare and hmr"
             )
         self.cfg = cfg
         self.backbone = BACKBONES[cfg.backbone_name]()
-        self.head = CliffHead(
-            num_input_features=BACKBONE_CHANNELS[cfg.backbone_name]
-        )
+        n_feat = self.backbone.out_channels
+        if cfg.head_name == "cliff":
+            self.head = CliffHead(num_input_features=n_feat)
+        elif cfg.head_name == "pare":
+            self.head = PareHead(num_input_features=n_feat, uncert_layer=cfg.uncert_layer)
+        else:
+            self.head = HmrHead(num_input_features=n_feat)
+        head_channels = self.head.get_output_channels()
         if cfg.has_uncert_head:
             self.uncert_head = PocoUncertHead(
-                num_input_channels=self.head.get_output_channels(),
+                num_input_channels=head_channels,
                 num_neurons=cfg.num_neurons,
                 sigma_dim=cfg.sigma_dim,
                 activation_type=cfg.activation_type,
@@ -110,35 +138,54 @@ class POCO(nn.Module):
                 exclude_uncert_idx=cfg.exclude_uncert_idx,
                 loss_ver=cfg.loss_ver,
             )
+        if cfg.has_flow_head:
+            self.flow_head = FlowHead(
+                num_input_features=head_channels,
+                num_nf_rv=cfg.num_nf_rv,
+                num_flow_layers=cfg.num_flow_layers,
+                nflow_mask_type=cfg.nflow_mask_type,
+                cond_nflow=cfg.cond_nflow,
+                context_dim=cfg.context_dim,
+                exclude_uncert_idx=cfg.exclude_uncert_idx,
+                mask_params_id=cfg.mask_params_id,
+            )
 
     def forward(self, batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict[str, Any]:
         cfg = self.cfg
-        if cfg.has_flow_head and "gt_pose_rotmat" in batch:
-            raise NotImplementedError(
-                "the RealNVP flow head (log_phi with a GT pose) is not ported"
-            )
         features = self.backbone(batch["img"].permute(0, 3, 1, 2))
-        head_out = self.head(features, batch["bbox_info"])
-        s = smplcam_head(
-            smpl,
-            rotmat=head_out["pred_pose"],
-            shape=head_out["pred_shape"],
-            cam=head_out["pred_cam"],
-            focal_length=batch["focal_length"],
-            bbox_scale=batch["scale"],
-            bbox_center=batch["center"],
-            img_h=batch["orig_shape"][:, 0],
-            img_w=batch["orig_shape"][:, 1],
-            img_res=cfg.img_res,
-        )
+        if cfg.head_name == "cliff":
+            head_out = self.head(features, batch["bbox_info"])
+            s = smplcam_head(
+                smpl,
+                rotmat=head_out["pred_pose"],
+                shape=head_out["pred_shape"],
+                cam=head_out["pred_cam"],
+                focal_length=batch["focal_length"],
+                bbox_scale=batch["scale"],
+                bbox_center=batch["center"],
+                img_h=batch["orig_shape"][:, 0],
+                img_w=batch["orig_shape"][:, 1],
+                img_res=cfg.img_res,
+            )
+        else:
+            head_out = self.head(features)
+            s = smpl_head(
+                smpl,
+                rotmat=head_out["pred_pose"],
+                shape=head_out["pred_shape"],
+                cam=head_out["pred_cam"],
+                img_res=cfg.img_res,
+                normalize_joints2d=True,
+            )
         output = dict(head_out)
         output.update(
             smpl_vertices=s.vertices,
             smpl_joints3d=s.joints3d,
             smpl_joints2d=s.joints2d,
             pred_cam_t=s.cam_t,
-            pred_fullimg_cam_t=s.fullimg_cam_t,
         )
+        if s.fullimg_cam_t is not None:
+            output["pred_fullimg_cam_t"] = s.fullimg_cam_t
         if cfg.has_uncert_head:
             cond = cfg.gt_pose_cond
             output.update(self.uncert_head(
@@ -147,22 +194,32 @@ class POCO(nn.Module):
                 gt_pose_rotmat=batch.get("gt_pose_rotmat") if cond else None,
                 gt_pose_cond_mask=batch.get("gt_pose_cond_mask") if cond else None,
             ))
-        # The flow log-likelihood exists only with a GT pose (training).
+        # The flow log-likelihood exists only with a GT pose (reference
+        # nf_head.py:128-130 returns None at inference).
         output["log_phi"] = None
+        if cfg.has_flow_head and "gt_pose_rotmat" in batch:
+            output["log_phi"] = self.flow_head(
+                head_out["uncert_feat"],
+                head_out["pred_pose"],
+                batch["gt_pose_rotmat"],
+                output.get("var_pose"),
+            )
         return output
 
 
 def make_dummy_batch(
-    cfg: PocoConfig, batch_size: int = 1, device="cuda"
+    cfg: PocoConfig, batch_size: int = 1, include_gt: bool = True, device="cuda"
 ) -> dict[str, torch.Tensor]:
-    """A shape-correct batch of constants, for warm-up."""
+    """A shape-correct batch of constants, for warm-up; with `include_gt`
+    an identity GT pose (and an all-False GT_POSE_COND mask), so the
+    forward also runs the flow head."""
     device = resolve_device(device)
     b = batch_size
 
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
 
-    return {
+    batch = {
         "img": full((b, cfg.img_res, cfg.img_res, 3), 0.0),
         "bbox_info": full((b, 3), 0.0),
         "focal_length": full((b,), 1000.0),
@@ -170,11 +227,46 @@ def make_dummy_batch(
         "center": full((b, 2), 500.0),
         "orig_shape": full((b, 2), 1000.0),
     }
+    if include_gt:
+        batch["gt_pose_rotmat"] = torch.eye(3, device=device).expand(b, 24, 3, 3)
+        batch["gt_pose_cond_mask"] = torch.zeros(b, dtype=torch.bool, device=device)
+    return batch
+
+
+def _build(device, **config) -> POCO:
+    device = resolve_device(device)
+    return POCO(PocoConfig(**config)).to(device).eval()
 
 
 def build_poco_cliff(device="cuda", **overrides) -> POCO:
     """The POCO-CLIFF model (configs/poco_cliff.yaml), in eval mode on
     `device`. Weights come from torch's global generator: seed it with
     `torch.manual_seed` for a repeatable random model."""
-    device = resolve_device(device)
-    return POCO(PocoConfig(**overrides)).to(device).eval()
+    return _build(device, **overrides)
+
+
+def build_poco_pare(device="cuda", **overrides) -> POCO:
+    """POCO-PARE (configs/poco_pare.yaml: HRNet-W32, PARE head, feat-pose
+    uncertainty at 512 neurons, a 3-layer flow), in eval mode on `device`."""
+    defaults = dict(
+        backbone="hrnet_w32-pare",
+        uncert_inp_type="feat-pose",
+        num_neurons=(512,),
+        num_flow_layers=3,
+        gt_pose_cond=False,
+    )
+    defaults.update(overrides)
+    return _build(device, **defaults)
+
+
+def build_hmr(device="cuda", **overrides) -> POCO:
+    """The HMR/SPIN baseline (configs/spin_hmr.yaml: ResNet-50, HMR head,
+    no uncertainty or flow head), in eval mode on `device`."""
+    defaults = dict(
+        backbone="resnet50-hmr",
+        uncert_layer="",
+        loss_ver="mse",
+        gt_pose_cond=False,
+    )
+    defaults.update(overrides)
+    return _build(device, **defaults)

@@ -10,8 +10,10 @@ same CUDA tensors at atol 1e-4 (fp32 sums of 24 terms in another order;
 the 3xTF32 split is within about 1e-6 of fp32), at the main path's shape,
 at the edges of the 16-row warp slices and the 128-vertex block tile,
 at odd sample counts (a pair with one sample), and at any 4-byte
-alignment of the tensors. The main path launches `skinning` once
-per SMPL forward and never `skinning_simt`.
+alignment of the tensors. The main paths (POCO-CLIFF, POCO-PARE, HMR)
+launch `skinning` once per SMPL forward and never `skinning_simt`; the
+flow head's forward runs on the card; a forward that would need the
+kernel's missing backward raises.
 """
 
 import numpy as np
@@ -20,7 +22,9 @@ import torch
 
 import poco_tpu_torch.models.poco as port_poco
 from poco_tpu_torch.demo.tester import detect_forward
+from poco_tpu_torch.models.backbones.common import Bottleneck
 from poco_tpu_torch.models.backbones.hrnet import HRNet
+from poco_tpu_torch.models.backbones.resnet import ResNet
 from poco_tpu_torch.ops.rotation import axis_angle_to_rotmat
 from poco_tpu_torch.ops.skinning import skinning, skinning_reference, skinning_simt
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
@@ -149,3 +153,69 @@ def test_main_path_launches_skinning_and_never_the_yardstick(cuda, monkeypatch):
     assert skinning_simt.launches == before_simt
     assert out["smpl_vertices"].shape == (3, 6890, 3)
     assert bool(torch.isfinite(out["smpl_vertices"]).all())
+
+
+# Narrow backbones (every other module at full width, V=6890), by model
+NARROW = {
+    "cliff": ("hrnet_w48_cls", lambda: HRNet(width=8), port_poco.build_poco_cliff),
+    "pare": (
+        "hrnet_w32", lambda: HRNet(width=8, variant="pose"), port_poco.build_poco_pare
+    ),
+    "hmr": ("resnet50", lambda: ResNet(Bottleneck, (1, 1, 1, 1)), port_poco.build_hmr),
+}
+
+
+def _narrow(monkeypatch, kind, device):
+    name, backbone, build = NARROW[kind]
+    monkeypatch.setitem(port_poco.BACKBONES, name, backbone)
+    torch.manual_seed(0)
+    return build(device=device)
+
+
+@pytest.mark.parametrize("kind", ["pare", "hmr"])
+def test_pare_and_hmr_launch_skinning_once_per_request(cuda, monkeypatch, kind):
+    model = _narrow(monkeypatch, kind, cuda)
+    smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
+    rng = np.random.RandomState(1)
+    image = rng.randint(0, 256, (240, 320, 3)).astype(np.uint8)
+    centers = np.asarray([[160, 120], [40, 200]], np.float32)
+    scales = np.asarray([1.1, 0.5], np.float32)
+    before, before_simt = skinning.launches, skinning_simt.launches
+    for _ in range(3):
+        out = detect_forward(model, smpl, image, centers, scales)
+    torch.cuda.synchronize()
+    assert skinning.launches == before + 3
+    assert skinning_simt.launches == before_simt
+    assert out["smpl_vertices"].shape == (2, 6890, 3)
+    assert "pred_fullimg_cam_t" not in out
+    for key in ("smpl_vertices", "pred_pose", "pred_cam"):
+        assert bool(torch.isfinite(out[key]).all()), key
+
+
+@pytest.mark.parametrize("kind", ["cliff", "pare"])
+def test_flow_forward_on_the_card_gives_finite_log_phi(cuda, monkeypatch, kind):
+    model = _narrow(monkeypatch, kind, cuda)
+    smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
+    batch = port_poco.make_dummy_batch(model.cfg, 4, include_gt=True, device=cuda)
+    rot = axis_angle_to_rotmat(0.3 * torch.randn(4, 24, 3, device=cuda))
+    batch.update(gt_pose_rotmat=rot, gt_pose_cond_mask=torch.arange(4, device=cuda) < 2)
+    before = skinning.launches
+    with torch.no_grad():
+        out = model(batch, smpl)
+    torch.cuda.synchronize()
+    assert skinning.launches == before + 1
+    assert out["log_phi"].shape == (4, 24)
+    assert bool(torch.isfinite(out["log_phi"]).all())
+
+
+def test_forward_with_autograd_raises_through_the_kernel_guard(cuda, monkeypatch):
+    """Parameters that need a gradient and autograd on: the skinning
+    kernel refuses, rather than return vertices without a grad_fn."""
+    model = _narrow(monkeypatch, "pare", cuda)
+    smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
+    batch = port_poco.make_dummy_batch(model.cfg, 2, include_gt=False, device=cuda)
+    assert all(p.requires_grad for p in model.parameters())
+    before = skinning.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(batch, smpl)
+    assert skinning.launches == before

@@ -6,6 +6,9 @@ module at full width: CLIFF head over 2048 features, V=6890 SMPL) from a
 uint8 image through `detect_forward`, and the JAX `preprocess_crops` +
 `POCO.apply` on the same weights, carried by `convert_state_dict`. JAX
 compiles that program once per file (module-scoped fixture).
+
+`narrow_models` builds the narrow twin pairs (CLIFF, PARE, HMR) that the
+other `test_torch_*` files share.
 """
 
 import ast
@@ -23,7 +26,9 @@ import torch
 import poco_tpu.models.poco as jax_poco
 from poco_tpu.config import model_config_from_hparams as jax_model_config
 from poco_tpu.config import update_hparams as jax_update_hparams
+from poco_tpu.models.backbones.common import Bottleneck as JaxBottleneck
 from poco_tpu.models.backbones.hrnet import HRNet as JaxHRNet
+from poco_tpu.models.backbones.resnet import ResNet as JaxResNet
 from poco_tpu.models.heads.cliff import CliffHead as JaxCliffHead
 from poco_tpu.models.heads.poco_uncert import PocoUncertHead as JaxPocoUncertHead
 from poco_tpu.ops.preprocess import preprocess_crops as jax_preprocess_crops
@@ -33,7 +38,9 @@ from poco_tpu.utils.checkpoint_convert import convert_state_dict
 import poco_tpu_torch.models.poco as port_poco
 from poco_tpu_torch.config import model_config_from_hparams, update_hparams
 from poco_tpu_torch.demo.tester import detect_forward
+from poco_tpu_torch.models.backbones.common import Bottleneck
 from poco_tpu_torch.models.backbones.hrnet import HRNet
+from poco_tpu_torch.models.backbones.resnet import ResNet
 from poco_tpu_torch.models.heads.cliff import CliffHead
 from poco_tpu_torch.models.heads.poco_uncert import PocoUncertHead
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
@@ -45,7 +52,62 @@ from poco_tpu_torch.utils.weights import (
 
 REPO = Path(__file__).resolve().parents[1]
 CLIFF_YAML = REPO / "configs" / "poco_cliff.yaml"
+PARE_YAML = REPO / "configs" / "poco_pare.yaml"
+HMR_YAML = REPO / "configs" / "spin_hmr.yaml"
 WIDTH = 8
+
+# Narrow twins of the three shipped models: the backbone cut (HRNet at
+# width 8, ResNet-50's Bottleneck stages at depth 1), every other module
+# at full width. kind -> (config, backbone name, port, JAX backbone).
+NARROW = {
+    "cliff": (
+        CLIFF_YAML, "hrnet_w48_cls",
+        lambda: HRNet(width=WIDTH),
+        lambda dtype=jnp.float32: JaxHRNet(variant="cls", width=WIDTH, dtype=dtype),
+    ),
+    "pare": (
+        PARE_YAML, "hrnet_w32",
+        lambda: HRNet(width=WIDTH, variant="pose"),
+        lambda dtype=jnp.float32: JaxHRNet(variant="pose", width=WIDTH, dtype=dtype),
+    ),
+    "hmr": (
+        HMR_YAML, "resnet50",
+        lambda: ResNet(Bottleneck, (1, 1, 1, 1)),
+        lambda dtype=jnp.float32: JaxResNet(JaxBottleneck, (1, 1, 1, 1), dtype=dtype),
+    ),
+}
+
+
+def narrow_models(mp, kind: str, seed: int = 0) -> dict:
+    """The narrow port model of `kind` on the CPU (seeded weights, BN
+    randomized and calibrated on one batch), its JAX twin (which takes the
+    port's weights through `convert_state_dict`) and both SMPLs (V=6890).
+    `mp` patches both backbone registries for as long as it is active."""
+    yaml, name, port_backbone, jax_backbone = NARROW[kind]
+    mp.setitem(port_poco.BACKBONES, name, port_backbone)
+    mp.setitem(jax_poco.BACKBONES, name, jax_backbone)
+    cfg = model_config_from_hparams(update_hparams(str(yaml)))
+    torch.manual_seed(seed)
+    model = port_poco.build_poco_cliff(device="cpu", **dataclasses.asdict(cfg))
+    randomize_batchnorm(model, torch.Generator().manual_seed(seed + 1))
+    crops = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(seed + 2))
+    calibrate_batchnorm(model.backbone, crops)
+    if kind == "pare":  # the PARE head has BN layers of its own
+        with torch.no_grad():
+            calibrate_batchnorm(model.head, model.backbone(crops))
+    return {
+        "model": model,
+        "jax_model": jax_poco.POCO(cfg=jax_model_config(jax_update_hparams(str(yaml)))),
+        "smpl": synthetic_smpl_model(num_verts=6890, device="cpu"),
+        "jax_smpl": jax_synthetic_smpl(num_verts=6890),
+    }
+
+
+def jax_variables(model: torch.nn.Module) -> dict:
+    """The port model's weights as a JAX variable tree."""
+    conv = convert_state_dict(model.state_dict(), head_type=model.cfg.head_name)
+    assert conv["unmatched"] == []
+    return {k: conv[k] for k in ("params", "batch_stats", "buffers")}
 
 
 def _flat(tree, prefix=()):
@@ -97,10 +159,9 @@ def test_cliff_head_on_jax_weights():
     bbox = rng.randn(3, 3).astype(np.float32)
     jhead = JaxCliffHead(num_input_features=2048)
     variables = jhead.init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(bbox))
-    state, skipped = state_dict_from_jax(
+    state = state_dict_from_jax(
         {"params": {"head": variables["params"]}, "buffers": {"head": variables["buffers"]}}
     )
-    assert not skipped
     head = CliffHead(2048).eval()
     head.load_state_dict(_strip(state, "head."), strict=True)
     with torch.no_grad():
@@ -120,7 +181,7 @@ def test_uncert_head_on_jax_weights(with_gt):
     mask = np.asarray([True, False, True])
     jhead = JaxPocoUncertHead(num_input_channels=2048)
     variables = jhead.init(jax.random.PRNGKey(1), jnp.asarray(feats), jnp.asarray(pose))
-    state, _ = state_dict_from_jax({"params": {"uncert_head": variables["params"]}})
+    state = state_dict_from_jax({"params": {"uncert_head": variables["params"]}})
     head = PocoUncertHead(2048).eval()
     head.load_state_dict(_strip(state, "uncert_head."), strict=True)
     kwargs_t, kwargs_j = {}, {}
@@ -134,9 +195,33 @@ def test_uncert_head_on_jax_weights(with_gt):
     _assert_outputs_close(port, ref, {"var_pose": 1e-5})
 
 
-def test_uncert_head_refuses_unported_modes():
-    with pytest.raises(NotImplementedError):
-        PocoUncertHead(2048, uncert_inp_type="feat-pose")
+@pytest.mark.parametrize("mode,neurons,kwargs", [
+    ("feat", (256, 64), dict(activation_type="softplus")),
+    ("feat-pose", (512,), dict(loss_ver="norm_flow_res_gaus", sigma_dim=9)),
+    ("feat-pose-net", (216,), dict(use_dropout=False, exclude_uncert_idx=(0, 3))),
+])
+def test_uncert_head_refuses_unported_modes(mode, neurons, kwargs):
+    """Every input mode is ported, its fc stack carried from JAX: feat (2
+    hidden layers), feat-pose (POCO-PARE's 3072 + 216 -> 512 -> 24, here
+    with sigma_dim 9) and feat-pose-net; a mode the JAX head does not
+    know is refused."""
+    with pytest.raises(ValueError, match="uncert_inp_type"):
+        PocoUncertHead(3072, uncert_inp_type="pose-feat")
+    rng = np.random.RandomState(2)
+    feats = rng.rand(3, 3072).astype(np.float32)
+    pose = rng.randn(3, 24, 3, 3).astype(np.float32)
+    jhead = JaxPocoUncertHead(
+        num_input_channels=3072, num_neurons=neurons, uncert_inp_type=mode, **kwargs
+    )
+    variables = jhead.init(jax.random.PRNGKey(2), jnp.asarray(feats), jnp.asarray(pose))
+    state = state_dict_from_jax({"params": {"uncert_head": variables["params"]}})
+    head = PocoUncertHead(3072, num_neurons=neurons, uncert_inp_type=mode, **kwargs).eval()
+    head.load_state_dict(_strip(state, "uncert_head."), strict=True)
+    with torch.no_grad():
+        port = head(torch.from_numpy(feats), torch.from_numpy(pose))
+    ref = jhead.apply(variables, jnp.asarray(feats), jnp.asarray(pose))
+    assert port["var_pose"].shape == ref["var_pose"].shape
+    _assert_outputs_close(port, ref, {"var_pose": 1e-5})
 
 
 # --------------------------------------------------------------------------
@@ -145,28 +230,9 @@ def test_uncert_head_refuses_unported_modes():
 
 @pytest.fixture(scope="module")
 def narrow():
-    """The narrow port model with calibrated BN, its JAX twin (whose
-    weights each test carries over) and both SMPLs."""
+    """The narrow POCO-CLIFF pair (`narrow_models`)."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(port_poco.BACKBONES, "hrnet_w48_cls", lambda: HRNet(width=WIDTH))
-        mp.setitem(
-            jax_poco.BACKBONES, "hrnet_w48_cls",
-            lambda dtype=jnp.float32: JaxHRNet(variant="cls", width=WIDTH, dtype=dtype),
-        )
-        torch.manual_seed(0)
-        model = port_poco.build_poco_cliff(device="cpu")
-        randomize_batchnorm(model, torch.Generator().manual_seed(1))
-        calibrate_batchnorm(
-            model.backbone,
-            torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(2)),
-        )
-        jmodel = jax_poco.build_poco_cliff()
-        yield {
-            "model": model,
-            "jax_model": jmodel,
-            "smpl": synthetic_smpl_model(num_verts=6890, device="cpu"),
-            "jax_smpl": jax_synthetic_smpl(num_verts=6890),
-        }
+        yield narrow_models(mp, "cliff")
 
 
 def _request(seed):
@@ -193,8 +259,7 @@ SLICE_TOLERANCES = {
 def _check_slice(model, jax_model, smpl, jax_smpl):
     image, centers, scales, true_hw = _request(3)
     port = detect_forward(model, smpl, image, centers, scales, true_hw)
-    conv = convert_state_dict(model.state_dict())
-    variables = {k: conv[k] for k in ("params", "batch_stats", "buffers")}
+    variables = jax_variables(model)
     fwd = jax.jit(lambda v, im, hw, c, s, sm: jax_model.apply(
         v, jax_preprocess_crops(im, c, s, true_hw=hw), sm, train=False))
     ref = fwd(variables, jnp.asarray(image), jnp.asarray(true_hw), jnp.asarray(centers),
@@ -227,52 +292,77 @@ def test_slice_fullwidth_matches_jax():
     )
 
 
-def test_bridge_round_trip(narrow):
-    model = narrow["model"]
-    state = model.state_dict()
-    conv = convert_state_dict(state)
-    assert conv["unmatched"] == []
+@pytest.mark.parametrize("kind", sorted(NARROW))
+def test_bridge_round_trip(kind):
+    """port state_dict -> `convert_state_dict` -> exactly the tree of the
+    JAX model initialized with a GT pose (flow head included) ->
+    `state_dict_from_jax` -> the same state_dict, which loads strictly."""
+    with pytest.MonkeyPatch.context() as mp:
+        pair = narrow_models(mp, kind)
+        model = pair["model"]
+        state = model.state_dict()
+        conv = convert_state_dict(state, head_type=kind)
+        assert conv["unmatched"] == []
 
-    # the converted tree is exactly the JAX model's (no flow head without GT)
-    batch = jax_poco.make_dummy_batch(model.cfg, 1, include_gt=False)
-    shapes = jax.eval_shape(
-        lambda: narrow["jax_model"].init(jax.random.PRNGKey(0), batch, narrow["jax_smpl"])
-    )
-    for col in ("params", "batch_stats", "buffers"):
-        expect = {k: tuple(v.shape) for k, v in _flat(shapes[col]).items()}
-        got = {k: tuple(np.shape(v)) for k, v in _flat(conv[col]).items()}
-        assert got == expect, col
+        batch = jax_poco.make_dummy_batch(model.cfg, 1, include_gt=True)
+        shapes = jax.eval_shape(
+            lambda: pair["jax_model"].init(jax.random.PRNGKey(0), batch, pair["jax_smpl"])
+        )
+        assert ("flow_head" in shapes["params"]) == model.cfg.has_flow_head
+        for col in ("params", "batch_stats", "buffers"):
+            expect = {k: tuple(v.shape) for k, v in _flat(shapes[col]).items()}
+            got = {k: tuple(np.shape(v)) for k, v in _flat(conv[col]).items()}
+            assert got == expect, col
 
-    back, skipped = state_dict_from_jax(conv)
-    assert not skipped
-    assert set(back) == set(state)
-    for key, value in state.items():
-        if not key.endswith("num_batches_tracked"):
-            torch.testing.assert_close(back[key], value, rtol=0, atol=0)
-    fresh = port_poco.POCO(model.cfg)
-    fresh.load_state_dict(back, strict=True)
+        back = state_dict_from_jax(conv)
+        assert set(back) == set(state)
+        for key, value in state.items():
+            if not key.endswith("num_batches_tracked"):
+                torch.testing.assert_close(back[key], value, rtol=0, atol=0)
+        fresh = port_poco.POCO(model.cfg)
+        fresh.load_state_dict(back, strict=True)
 
 
 def test_state_dict_from_jax_leaves_flow_head_and_refuses_strangers():
+    """The flow head's leaves are carried; a leaf with no place raises."""
     tree = {"params": {
         "head": {"fc1": {"kernel": np.zeros((5, 4), np.float32)}},
-        "flow_head": {"cond_layer": {"kernel": np.zeros((2, 2), np.float32)}},
+        "flow_head": {
+            "cond_layer": {"kernel": np.zeros((2, 3), np.float32)},
+            "flow": {"t1": {"fc2": {"bias": np.arange(9, dtype=np.float32)}}},
+        },
     }}
-    state, skipped = state_dict_from_jax(tree)
+    state = state_dict_from_jax(tree)
     assert state["head.fc1.weight"].shape == (4, 5)
-    assert list(skipped) == ["params/flow_head/cond_layer/kernel"]
+    assert state["flow_head.cond_layer.weight"].shape == (3, 2)
+    np.testing.assert_array_equal(state["flow_head.flow.t.1.4.bias"], np.arange(9))
+    assert len(state) == 3
     tree["params"]["mystery"] = {"w": np.zeros(1, np.float32)}
     with pytest.raises(KeyError, match="mystery"):
         state_dict_from_jax(tree)
+    del tree["params"]["mystery"]
+    tree["params"]["flow_head"]["flow"]["u0"] = {"fc0": {"bias": np.zeros(1, np.float32)}}
+    with pytest.raises(KeyError, match="u0"):
+        state_dict_from_jax(tree)
 
 
-def test_model_refuses_unported_paths(narrow):
-    with pytest.raises(NotImplementedError, match="flow head"):
-        batch = port_poco.make_dummy_batch(narrow["model"].cfg, 1, device="cpu")
-        batch["gt_pose_rotmat"] = torch.eye(3).expand(1, 24, 3, 3)
-        narrow["model"](batch, narrow["smpl"])
-    with pytest.raises(NotImplementedError, match="cliff head"):
-        port_poco.POCO(port_poco.PocoConfig(backbone="hrnet_w32-pare"))
+def test_port_builds_every_backbone_of_the_jax_registry_but_tiny():
+    from poco_tpu.models.backbones.resnet import BACKBONE_INFO
+
+    assert set(port_poco.BACKBONES) == set(jax_poco.BACKBONES) - {"tiny", "tiny_pose"}
+    for name, factory in port_poco.BACKBONES.items():
+        with torch.device("meta"):
+            net = factory()
+        assert net.out_channels == BACKBONE_INFO[name]["n_output_channels"], name
+
+
+def test_model_refuses_unported_paths():
+    with pytest.raises(NotImplementedError, match="tiny"):
+        port_poco.POCO(port_poco.PocoConfig(backbone="tiny-cliff"))
+    with pytest.raises(NotImplementedError, match="tiny"):
+        port_poco.POCO(port_poco.PocoConfig(backbone="tiny_pose-pare"))
+    with pytest.raises(NotImplementedError, match="head 'spin'"):
+        port_poco.POCO(port_poco.PocoConfig(backbone="resnet18-spin"))
 
 
 # --------------------------------------------------------------------------
