@@ -11,8 +11,9 @@ Phases, each of which raises (exit code 1) on failure:
      (nvcc, in parallel), printing the `-Xptxas -v` report;
   3. kernel check: the skinning kernel (`skinning`, 3xTF32 tensor cores)
      and its fp32-FMA yardstick (`skinning_simt`) against the plain torch
-     version on the card, at the main path's shapes (B = 1, 8, 128 at
-     V=6890) and a ragged one;
+     version on the card, at every batch the main paths launch it with
+     (B = 1, 2, 8, 16, 64, 128 at V=6890; the launch layout depends on B)
+     and a ragged shape;
   4. main path at full width: POCO-CLIFF (HRNet-W48-cls, configs/
      poco_cliff.yaml) with seeded random weights and a V=6890 synthetic
      SMPL answers `detect_forward` requests of 1, 8 and 128 boxes on a
@@ -27,13 +28,22 @@ Phases, each of which raises (exit code 1) on failure:
      POCO models gives a finite (B, 24) `log_phi`; card against CPU at B=2;
   4d. the HMR baseline (ResNet-50, configs/spin_hmr.yaml): one 8-box
      request, launches, shapes, card against CPU (the vertices as in 4b);
+  4e. evaluation at full width: `run_eval` of POCO-CLIFF over 1024
+     synthetic 3DPW-style samples in batches of 64 (gendered GT meshes
+     from three V=6890 SMPLs), flip-TTA off and on; `skinning` must launch
+     5 times a batch, 7 with flip-TTA; the first 16 samples against the
+     CPU, the card's Procrustes against float64 numpy, flip-TTA of a
+     flip-equivariant stub exact, one batch of POCO-PARE; samples/s (and
+     at batch 128 without flip-TTA), and whether the SVD syncs the host;
   5. crops/s at batch 128, fp32: POCO-CLIFF with the kernel and, in turns,
      with the plain skinning in its place (the yardstick); POCO-PARE with
      the kernel;
   6. a torch.profiler trace of 128-crop requests of POCO-CLIFF and of
-     POCO-PARE: device busy and idle share, the skinning kernel's share,
-     the top device kernels; and the SMPL stage alone with the kernel and
-     with the plain skinning;
+     POCO-PARE, and of POCO-CLIFF's eval step on a batch of 64 with
+     flip-TTA off and on: device busy and idle share, the skinning
+     kernel's share, the top device kernels, the eval step's device time
+     by stage (its `EVAL_STAGES` profiler ranges); and the SMPL stage
+     alone with the kernel and with the plain skinning;
   7. kernel timing, last (after CUDA-graph capture the eager launches of
      phases 5 and 6 would run slower): both kernels at phase 3's shapes,
      in turns, from CUDA events around CUDA-graph replays, with the
@@ -59,14 +69,29 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.data import Subset
 
 from poco_tpu_torch.config import model_config_from_hparams, update_hparams
-from poco_tpu_torch.constants import IMG_NORM_STD
+from poco_tpu_torch.constants import (
+    IMG_NORM_STD,
+    PW3D_OCCLUDED_SEQUENCES,
+    PW3D_TEST_SEQUENCES,
+)
+from poco_tpu_torch.data.dataset import calculate_bbox_info_np
 from poco_tpu_torch.demo.tester import detect_forward
+from poco_tpu_torch.eval import metrics as eval_metrics
+from poco_tpu_torch.eval import runner as eval_runner
+from poco_tpu_torch.eval.checks import equivariant_case, procrustes_f64
+from poco_tpu_torch.eval.runner import (
+    EVAL_STAGES,
+    make_gendered_eval_step,
+    pw3d_split_report,
+    run_eval,
+)
 from poco_tpu_torch.models.poco import build_hmr, build_poco_cliff, build_poco_pare
 from poco_tpu_torch.ops import kernels
-from poco_tpu_torch.ops.preprocess import preprocess_crops
-from poco_tpu_torch.ops.rotation import axis_angle_to_rotmat
+from poco_tpu_torch.ops.preprocess import normalize_image, preprocess_crops
+from poco_tpu_torch.ops.rotation import average_rotmats, axis_angle_to_rotmat
 from poco_tpu_torch.ops.skinning import skinning, skinning_reference, skinning_simt
 from poco_tpu_torch.smpl import lbs as lbs_module
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
@@ -100,6 +125,11 @@ METERS_TOL = 1e-4     # joints3d / vertices, card vs CPU (0.1 mm budget)
 GOLDEN_TOL = 5e-4     # vertices, the 0.5 mm golden-gate budget (BASELINE.md)
 CROP_TOL = 0.1        # crop pixels, card vs CPU, in grey levels (see card_vs_cpu)
 LOG_PHI_ATOL, LOG_PHI_RTOL = 2e-3, 1e-4   # flow log-likelihood, card vs CPU
+POSE_DIST_TOL = 1e-5  # per-joint rotmat MSE of the eval step, card vs CPU
+SUMMARY_RTOL, SUMMARY_ATOL = 1e-3, 1e-4   # eval summary scalars, card vs CPU
+PROCRUSTES_TOL = 1e-5  # pa_mpjpe on the card against float64 numpy, m
+EVAL_SAMPLES, EVAL_BATCH = 1024, 64
+EVAL_LAUNCHES = {False: 5, True: 7}   # skinning launches an eval batch, by flip-TTA
 
 
 def check(ok: bool, message: str) -> None:
@@ -245,7 +275,11 @@ def cold_ms(fn, sets, calls: int = 40) -> float:
     return graph_ms(fn, sets, replays=max(1, calls // len(sets)), keep_outputs=True)
 
 
-SKIN_SHAPES = ((128, 6890), (8, 6890), (1, 6890), (3, 1001))
+# every batch size the main paths launch `skinning` with (the launch
+# layout, `group_size` in csrc/skinning.cu, depends on it): requests of
+# 128, 8, 1, card-vs-CPU checks of 2, eval batches of 64 and 16
+SKIN_SHAPES = ((128, 6890), (64, 6890), (16, 6890), (8, 6890), (2, 6890), (1, 6890),
+               (3, 1001))
 
 
 KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
@@ -554,6 +588,279 @@ def phase_hmr(ctx: dict, seed: int) -> int:
     return launches
 
 
+class SyntheticEvalSet:
+    """An in-memory 3DPW-style test set with `PocoDataset`'s item schema
+    (`poco_tpu_torch/data/dataset.py`, `_finish_item`) and no image files,
+    so no OpenCV: seeded float32 crops in [0, 255], each of its own
+    brightness and contrast; GT pose uniform in +-0.3 rad axis-angle,
+    betas in +-0.5; genders m, f and n; 1080x1920 portrait frames; image
+    names spread over the 3DPW test sequences, the occluded ones and
+    others, so that every split of `pw3d_split_report` is filled."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.RandomState(seed)
+        seqs = (list(PW3D_TEST_SEQUENCES) + list(PW3D_OCCLUDED_SEQUENCES)
+                + [f"other_sequence_{k:02d}" for k in range(8)])
+        self.imgname = [f"imageFiles/{seqs[k]}/image_{i:05d}.jpg"
+                        for i, k in enumerate(rng.randint(0, len(seqs), n))]
+        self.noise = rng.randint(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+        self.gain = rng.uniform(0.2, 1.0, n).astype(np.float32)
+        self.offset = rng.uniform(0.0, 120.0, n).astype(np.float32)
+        self.pose = rng.uniform(-0.3, 0.3, (n, 72)).astype(np.float32)
+        self.betas = rng.uniform(-0.5, 0.5, (n, 10)).astype(np.float32)
+        self.gender = rng.choice(np.asarray([0, 1, -1], np.int32), n)  # m, f, n
+        self.orig_shape = np.asarray([1920.0, 1080.0], np.float32)
+        self.center = np.stack([rng.uniform(300, 780, n), rng.uniform(500, 1420, n)],
+                               axis=1).astype(np.float32)
+        self.scale = rng.uniform(2.0, 4.5, n).astype(np.float32)
+
+    def __len__(self) -> int:
+        return len(self.imgname)
+
+    def __getitem__(self, i: int) -> dict:
+        crop = np.clip(self.offset[i] + self.gain[i] * self.noise[i], 0.0, 255.0)
+        h, w = self.orig_shape
+        return {
+            "img": crop.astype(np.float32),
+            "pose": self.pose[i],
+            "betas": self.betas[i],
+            "pose_3d": np.zeros((24, 4), np.float32),
+            "keypoints": np.zeros((49, 3), np.float32),
+            "keypoints_fullimg": np.zeros((49, 3), np.float32),
+            "has_smpl": np.float32(1.0),
+            "has_pose_3d": np.float32(0.0),
+            "scale": self.scale[i],
+            "center": self.center[i],
+            "orig_shape": self.orig_shape,
+            "focal_length": np.float32(np.sqrt(h**2 + w**2)),
+            "bbox_info": calculate_bbox_info_np(self.center[i], self.scale[i], self.orig_shape),
+            "is_flipped": np.float32(0.0),
+            "rot_angle": np.float32(0.0),
+            "gender": self.gender[i],
+            "sample_index": np.int32(i),
+            "dataset_name": "3dpw",
+            "imgname": self.imgname[i],
+        }
+
+
+def device_batch(data, indices, device="cuda") -> dict:
+    """Items of `data` collated and moved as `run_eval` moves them."""
+    from poco_tpu_torch.data.dataset import collate
+
+    host = collate([data[i] for i in indices])
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in host.items() if not isinstance(v, list)}
+    batch["img"] = normalize_image(batch["img"])
+    return batch
+
+
+def spread_sigma(model, smpl, batch: dict) -> None:
+    """Rescale the uncertainty head's last layer so that its logits have
+    mean 0 and std 1 a joint over `batch`. A randomly initialized head
+    gives every sample nearly the same sigma (they span ~1e-5), which
+    would leave the calibration correlations of the eval summary to fp32
+    noise; a trained head's sigma spans most of (0, 1)."""
+    head = model.uncert_head
+    last = getattr(head, f"uncert_fc{head.num_fc}")
+    logits = []
+    hook = last.register_forward_hook(lambda module, inputs, out: logits.append(out))
+    try:
+        with torch.inference_mode():
+            model(batch, smpl)
+    finally:
+        hook.remove()
+    mean, std = logits[0].mean(0), logits[0].std(0).clamp_min(1e-12)
+    with torch.no_grad():
+        last.weight.div_(std[:, None])
+        last.bias.sub_(mean).div_(std)
+
+
+def eval_card_vs_cpu(model, data, smpls) -> None:
+    """The first 16 samples through the same `run_eval` on the card and on
+    a CPU copy of the model and SMPLs, flip-TTA off and on: per-sample
+    mpjpe, pa_mpjpe, v2v within METERS_TOL, the prepared sigma within
+    HEAD_TOL, pose_dist within POSE_DIST_TOL, summary scalars within
+    SUMMARY_RTOL or SUMMARY_ATOL, whichever is looser."""
+    cpu_model = build_poco_cliff(device="cpu", **dataclasses.asdict(model.cfg))
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_smpls = [s.to("cpu") for s in smpls]
+    sub = Subset(data, range(16))
+    for flip in (False, True):
+        card = run_eval(model, sub, *smpls, batch_size=EVAL_BATCH,
+                        loss_ver=model.cfg.loss_ver, flip_test=flip)
+        cpu = run_eval(cpu_model, sub, *cpu_smpls, batch_size=EVAL_BATCH,
+                       loss_ver=model.cfg.loss_ver, flip_test=flip)
+        check(card.imgnames == cpu.imgnames, "eval: card and CPU sample names differ")
+        for key in ("mpjpe_mm", "pa_mpjpe_mm", "v2v_mm"):
+            err = float(np.abs(getattr(card, key) - getattr(cpu, key)).max()) / 1000.0
+            print(f"eval flip={flip} card vs cpu {key[:-3]}: max {err:.3e} m "
+                  f"(tolerance {METERS_TOL})")
+            check(err <= METERS_TOL, f"eval {key}: card and CPU disagree by {err} m")
+        for key, tol in (("uncert", HEAD_TOL), ("pose_dist", POSE_DIST_TOL)):
+            err = float(np.abs(getattr(card, key) - getattr(cpu, key)).max())
+            print(f"eval flip={flip} card vs cpu {key}: max_abs_err {err:.3e} (tolerance {tol})")
+            check(err <= tol, f"eval {key}: card and CPU disagree by {err}")
+        print(f"eval flip={flip}: sigma a sample spans "
+              f"{float(np.ptp(cpu.uncert.mean(-1))):.3e} over the 16 samples")
+        s_card, s_cpu = card.summary(), cpu.summary()
+        for key, ref in s_cpu.items():
+            err = abs(s_card[key] - ref)
+            tol = max(SUMMARY_RTOL * abs(ref), SUMMARY_ATOL)
+            print(f"eval flip={flip} summary {key}: card {s_card[key]:.6f} cpu {ref:.6f} "
+                  f"(tolerance {tol:.2e})")
+            check(err <= tol, f"eval summary {key}: card and CPU disagree by {err}")
+
+
+def eval_procrustes_vs_fp64(model, data, smpls) -> None:
+    """The card's `pa_mpjpe` on its own joints (4 batches, captured where
+    the eval step calls it) against float64 numpy Procrustes."""
+    captured = []
+
+    def recording(pred, gt):
+        out = eval_metrics.pa_mpjpe(pred, gt)
+        captured.append((pred.cpu().numpy(), gt.cpu().numpy(), out.cpu().numpy()))
+        return out
+
+    eval_runner.pa_mpjpe = recording
+    try:
+        run_eval(model, data, *smpls, batch_size=EVAL_BATCH, loss_ver=model.cfg.loss_ver,
+                 max_batches=4)
+    finally:
+        eval_runner.pa_mpjpe = eval_metrics.pa_mpjpe
+    pred, gt, card = (np.concatenate(x) for x in zip(*captured))
+    ref = np.linalg.norm(procrustes_f64(pred, gt) - gt, axis=-1).mean(-1)
+    err = float(np.abs(card - ref).max())
+    print(f"eval pa_mpjpe on the card vs float64 numpy Procrustes, {len(card)} samples: "
+          f"max {err:.3e} m (tolerance {PROCRUSTES_TOL})")
+    check(err <= PROCRUSTES_TOL, f"eval: card Procrustes off float64 by {err} m")
+
+
+def eval_flip_exact() -> None:
+    """Flip-TTA of a flip-equivariant stub equals the ground truth:
+    mpjpe and v2v 0 within METERS_TOL (tests/test_eval.py:206-261)."""
+    stub, batch = equivariant_case("cuda")
+    smpl = synthetic_smpl_model(num_verts=6890, seed=3, device="cuda")
+    m = make_gendered_eval_step(stub, flip_test=True)(batch, smpl, smpl, smpl)
+    worst = max(float(m["mpjpe"].abs().max()), float(m["v2v"].abs().max()))
+    print(f"eval flip-TTA of a flip-equivariant stub: mpjpe/v2v max {worst:.3e} m "
+          f"(tolerance {METERS_TOL})")
+    check(worst <= METERS_TOL, f"eval: flip-TTA of an equivariant model is off by {worst} m")
+
+
+def svd_sync_report(card: str) -> None:
+    """Whether the linear algebra of the eval step waits for the card
+    (torch.cuda sync debug mode turns a synchronizing call into an
+    error), and the device and host time of each call at batch 64."""
+    rng = np.random.RandomState(9)
+    k = torch.from_numpy(rng.randn(EVAL_BATCH, 3, 3).astype(np.float32)).cuda()
+    ra = axis_angle_to_rotmat(torch.from_numpy(rng.randn(EVAL_BATCH, 24, 3).astype(np.float32)).cuda())
+    joints = torch.from_numpy(rng.randn(2, EVAL_BATCH, 14, 3).astype(np.float32)).cuda()
+    calls = {
+        "torch.linalg.svd (64,3,3)": lambda: torch.linalg.svd(k),
+        "torch.linalg.det (64,3,3)": lambda: torch.linalg.det(k),
+        "procrustes_align (64,14,3)": lambda: eval_metrics.procrustes_align(*joints),
+        "average_rotmats (64,24,3,3)": lambda: average_rotmats(ra, ra),
+    }
+    for label, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            syncs = "no"
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            syncs = "yes"
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        reps = 50
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - start) / reps * 1e3
+        print(f"{label}: syncs the host: {syncs}; {cuda_ms(fn, iters=reps):.4f} ms device "
+              f"(CUDA events), {host_ms:.4f} ms a call on the host clock, on {card}")
+
+
+def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
+    """3DPW-style evaluation at full width; returns the skinning launches
+    of its main-path runs and the eval step on a batch of 64, flip-TTA off
+    and on, for the profile."""
+    print("== 4e. evaluation at full width: POCO-CLIFF run_eval, 3DPW-style synthetic set")
+    smpls = (ctx["smpl"],
+             synthetic_smpl_model(num_verts=6890, seed=seed + 11, device="cuda"),
+             synthetic_smpl_model(num_verts=6890, seed=seed + 12, device="cuda"))
+    data = SyntheticEvalSet(EVAL_SAMPLES, seed + 5)
+    model = copy.deepcopy(ctx["model"])  # phase 4's weights, its sigma spread out
+    spread_sigma(model, smpls[0], device_batch(data, range(EVAL_BATCH)))
+    n_batches = math.ceil(EVAL_SAMPLES / EVAL_BATCH)
+    print(f"{EVAL_SAMPLES} samples in {n_batches} batches of {EVAL_BATCH}; SMPL neutral, "
+          f"male, female at V=6890 from seeds {seed}, {seed + 11}, {seed + 12}")
+    launches = 0
+    for flip in (False, True):
+        skinning.launches = skinning_simt.launches = 0
+        result = run_eval(model, data, *smpls, batch_size=EVAL_BATCH,
+                          loss_ver=model.cfg.loss_ver, flip_test=flip)
+        torch.cuda.synchronize()
+        n = skinning.launches
+        print(f"eval flip_test={flip}: skinning launches {n} ({n / n_batches:g} a batch), "
+              f"skinning_simt launches {skinning_simt.launches}")
+        check(n == EVAL_LAUNCHES[flip] * n_batches,
+              f"eval: skinning must launch {EVAL_LAUNCHES[flip]} times a batch")
+        check(skinning_simt.launches == 0, "eval: the yardstick kernel ran on the main path")
+        launches += n
+        check(len(result.imgnames) == EVAL_SAMPLES, "eval: samples lost")
+        for key in ("mpjpe_mm", "pa_mpjpe_mm", "v2v_mm", "uncert", "pose_dist"):
+            check(bool(np.isfinite(getattr(result, key)).all()), f"eval {key}: not finite")
+        report = pw3d_split_report(result.imgnames, result.mpjpe_mm, result.pa_mpjpe_mm,
+                                   result.v2v_mm)
+        check(set(report) == {"all", "test_seq", "occluded_seq"}, f"eval splits: {set(report)}")
+        print(f"eval flip_test={flip} summary: {json.dumps(result.summary())}")
+        print(f"eval flip_test={flip} splits: {json.dumps(report)}")
+
+    eval_card_vs_cpu(model, data, smpls)
+    eval_procrustes_vs_fp64(model, data, smpls)
+    eval_flip_exact()
+
+    skinning.launches = 0
+    pare_result = run_eval(pare["model"], Subset(data, range(EVAL_BATCH)), *smpls,
+                           batch_size=EVAL_BATCH, loss_ver=pare["model"].cfg.loss_ver)
+    torch.cuda.synchronize()
+    print(f"eval POCO-PARE, one batch of {EVAL_BATCH}: skinning launches {skinning.launches}; "
+          f"summary {json.dumps(pare_result.summary())}")
+    check(skinning.launches == EVAL_LAUNCHES[False], "eval pare: 5 skinning launches a batch")
+    for key in ("mpjpe_mm", "pa_mpjpe_mm", "v2v_mm", "uncert"):
+        check(bool(np.isfinite(getattr(pare_result, key)).all()), f"eval pare {key}: not finite")
+    launches += skinning.launches
+
+    # samples/s at batch 64 with flip-TTA off and on, in turns; and at
+    # batch 128 without it, the serving phases' batch, for comparison
+    runs = ((EVAL_BATCH, False), (EVAL_BATCH, True), (EVAL_BATCH, True), (EVAL_BATCH, False),
+            (2 * EVAL_BATCH, False)) * 3
+    times = {run: [] for run in runs}
+    for batch_size, flip in runs:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run_eval(model, data, *smpls, batch_size=batch_size, loss_ver=model.cfg.loss_ver,
+                 flip_test=flip)
+        torch.cuda.synchronize()
+        times[(batch_size, flip)].append(time.perf_counter() - start)
+    for (batch_size, flip), ts in times.items():
+        med = statistics.median(ts)
+        print(f"eval throughput, POCO-CLIFF, batch {batch_size}, flip_test={flip}, "
+              f"{len(ts)} passes of {EVAL_SAMPLES} samples: median {med:.4f} s "
+              f"(min {min(ts):.4f}, max {max(ts):.4f}) = {EVAL_SAMPLES / med:.1f} samples/s "
+              f"(min {EVAL_SAMPLES / max(ts):.1f}, max {EVAL_SAMPLES / min(ts):.1f}) on {card}")
+    svd_sync_report(card)
+    batch = device_batch(data, range(EVAL_BATCH))
+    steps = {flip: make_gendered_eval_step(model, flip_test=flip) for flip in (False, True)}
+    return {"launches": launches,
+            "run_batch": {flip: (lambda s=s: s(batch, *smpls)) for flip, s in steps.items()}}
+
+
 def timed_requests(run, reps: int) -> list[float]:
     times = []
     for _ in range(reps):
@@ -606,9 +913,18 @@ def phase_throughput(ctx: dict, pare: dict, reps: int, card: str) -> None:
                 card)
 
 
-def profile_request(label: str, run) -> None:
+def launched_us(event) -> float:
+    """Device time of the kernels launched under a CPU event of a profile,
+    its children's included (profiler ranges mirrored on the device are
+    not kernels and are left out)."""
+    return (sum(k.duration for k in event.kernels if k.name not in EVAL_STAGES)
+            + sum(launched_us(c) for c in event.cpu_children))
+
+
+def profile_request(label: str, run, card: str) -> None:
     """Device busy and idle share, ops, the skinning kernel's share and the
-    top device kernels of `run` (one 128-crop request), over 3 requests."""
+    top device kernels of `run` (one request, or one eval step), over 3
+    calls; for the eval step, its device time by `EVAL_STAGES` range."""
     from torch.profiler import ProfilerActivity, profile
 
     n = 3
@@ -622,7 +938,7 @@ def profile_request(label: str, run) -> None:
         wall_us = (time.perf_counter() - start) * 1e6
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in EVAL_STAGES
     )
     if not spans:
         print(f"{label} device time: not measured (the profiler recorded no device events)")
@@ -633,18 +949,31 @@ def profile_request(label: str, run) -> None:
         end = max(end, s1)
         by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
     skin_us = sum(t for name, t in by_name.items() if "skin_tc_kernel" in name)
-    print(f"{label}: device busy {busy / n / 1e3:.3f} ms per request of "
+    print(f"{label}: device busy {busy / n / 1e3:.3f} ms a call of "
           f"{wall_us / n / 1e3:.3f} ms wall: busy share {busy / wall_us:.4f}, "
-          f"idle share {1 - busy / wall_us:.4f}")
-    print(f"{label}: skinning kernel {skin_us / n / 1e3:.4f} ms per request = "
-          f"{skin_us / busy:.5f} of device time; {len(spans) // n} device ops per request")
+          f"idle share {1 - busy / wall_us:.4f}, on {card}")
+    print(f"{label}: skinning kernel {skin_us / n / 1e3:.4f} ms a call = "
+          f"{skin_us / busy:.5f} of device time; {len(spans) // n} device ops a call")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {t / busy:7.4f}  {t / n / 1e3:9.4f} ms  {name[:100]}")
+    stages = {name: 0.0 for name in EVAL_STAGES}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in stages:
+            stages[e.name] += launched_us(e)
+    staged = sum(stages.values())
+    if staged > 0:
+        print(f"{label}: device time by stage (kernels launched in each profiler range), "
+              f"{staged / n / 1e3:.3f} ms a call in all:")
+        for name, t in stages.items():
+            if t > 0:
+                print(f"  {name:20s} {t / n / 1e3:9.4f} ms = {t / staged:.4f}")
 
 
-def phase_profile(ctx: dict, pare: dict) -> None:
+def phase_profile(ctx: dict, pare: dict, evaluation: dict, card: str) -> None:
     """Where a 128-crop request spends device time (torch.profiler), for
-    POCO-CLIFF and POCO-PARE, and the SMPL stage alone."""
+    POCO-CLIFF and POCO-PARE, the SMPL stage alone, and one eval step on a
+    batch of 64 with flip-TTA off and on (the device-side batch, without
+    the loader)."""
     print("== 6. profile: one 128-crop request")
     c, s = ctx["request"]
     smpl = ctx["smpl"]
@@ -659,12 +988,14 @@ def phase_profile(ctx: dict, pare: dict) -> None:
     print(f"SMPL stage (smpl_forward, B={len(c)}, V=6890): {stage_ms:.4f} ms with the "
           f"kernel, {stage_plain_ms:.4f} ms with the plain skinning")
     profile_request(
-        "POCO-CLIFF", lambda: detect_forward(ctx["model"], smpl, ctx["image"], c, s)
+        "POCO-CLIFF", lambda: detect_forward(ctx["model"], smpl, ctx["image"], c, s), card
     )
     pc, ps = pare["request"]
     profile_request(
-        "POCO-PARE", lambda: detect_forward(pare["model"], smpl, ctx["image"], pc, ps)
+        "POCO-PARE", lambda: detect_forward(pare["model"], smpl, ctx["image"], pc, ps), card
     )
+    for flip, run in evaluation["run_batch"].items():
+        profile_request(f"eval step, POCO-CLIFF, batch 64, flip_test={flip}", run, card)
 
 
 def main() -> int:
@@ -682,11 +1013,15 @@ def main() -> int:
     pare = phase_pare(ctx, args.seed)
     flow_launches = phase_flow(ctx, pare, args.seed)
     hmr_launches = phase_hmr(ctx, args.seed)
-    launches = ctx["launches"] + pare["launches"] + flow_launches + hmr_launches
+    evaluation = phase_eval(ctx, pare, args.seed, card)
+    eval_launches = evaluation["launches"]
+    launches = (ctx["launches"] + pare["launches"] + flow_launches + hmr_launches
+                + eval_launches)
     print(f"skinning launches on the main paths: {launches} (cliff {ctx['launches']}, "
-          f"pare {pare['launches']}, flow {flow_launches}, hmr {hmr_launches})")
+          f"pare {pare['launches']}, flow {flow_launches}, hmr {hmr_launches}, "
+          f"eval {eval_launches})")
     phase_throughput(ctx, pare, args.reps, card)
-    phase_profile(ctx, pare)
+    phase_profile(ctx, pare, evaluation, card)
     times = phase_kernel_timing(peaks)
     record = {
         "name": "skinning",

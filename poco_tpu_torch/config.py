@@ -3,12 +3,13 @@
 Port of the parts of `poco_tpu.config` that build a model: the same key
 tree (general / DATASET / OPTIMIZER / TRAINING / TESTING / SPIN / POCO,
 reference pocolib/core/config.py:84-229), YAML files merged over the
-defaults with unknown keys refused, and `model_config_from_hparams`,
-which returns the port's `PocoConfig`.
+defaults with unknown keys refused, `model_config_from_hparams`, which
+returns the port's `PocoConfig`, and the dataset-file registry.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import yaml
@@ -41,6 +42,44 @@ class CfgNode(dict):
     def merge_from_file(self, path: str) -> None:
         with open(path) as f:
             self.merge_from_dict(yaml.safe_load(f) or {})
+
+
+# npz filename registry (reference config.py:66-81, DATASET_FILES):
+# [0] = eval/test files, [1] = train files. Names not listed fall back
+# to the synthesized <name>_{test,train}.npz convention.
+DATASET_FILES = [
+    {
+        "3dpw": "3dpw_test_with_mmpose.npz",
+        "3doh": "3doh_test.npz",
+    },
+    {
+        "h36m": "h36m_train.npz",
+        "mpii": "mpii_train.npz",
+        "coco": "coco_2014_train.npz",
+        "lspet": "hr-lspet_train.npz",
+        "mpi-inf-3dhp-spin": "mpi_inf_3dhp_spin_train.npz",
+        "3dpw": "3dpw_train.npz",
+        "3doh": "3doh_train.npz",
+        "charades": "charades_train.npz",
+    },
+]
+
+
+def dataset_npz_path(data_dir: str, name: str, is_train: bool) -> str:
+    """A dataset's npz file under `data_dir/dataset_extras`: the
+    registry's name, else `<name>_{test,train}.npz`, whichever exists;
+    the registry's name when neither does (for the error message)."""
+    registry = DATASET_FILES[1 if is_train else 0]
+    suffix = "train" if is_train else "test"
+    candidates = []
+    if name in registry:
+        candidates.append(registry[name])
+    candidates.append(f"{name}_{suffix}.npz")
+    for fname in candidates:
+        path = os.path.join(data_dir, "dataset_extras", fname)
+        if os.path.exists(path):
+            return path
+    return os.path.join(data_dir, "dataset_extras", candidates[0])
 
 
 def _node(d: dict) -> CfgNode:

@@ -1,0 +1,299 @@
+"""npz-annotation dataset and batching on the host (port of the evaluation
+path of `poco_tpu.data.dataset`).
+
+Reference contract: pocolib/dataset/base_dataset.py. The npz schema is
+unchanged: imgname, center, scale, and optionally pose (72), shape (10),
+S (24, 4), part (24, 3), openpose (25, 3), gender, has_smpl, person_id,
+var. Items stay numpy, with each crop HWC in [0, 255]; normalization and
+the GT meshes happen on the device, in the eval step. Images are read and
+cropped with OpenCV, imported when an item is read.
+
+Not ported yet: the JAX package's native whole-batch decoder, synthetic
+occlusion, the sharded loader and `ResumableSampler`.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import Any, Iterator
+
+import numpy as np
+
+from ..constants import IMG_RES
+from .transforms import (
+    AugmentParams,
+    convert_crop_coords_to_orig_img,
+    process_image,
+    process_keypoints_2d,
+    process_keypoints_3d,
+    process_pose,
+    require_cv2,
+    sample_augment_params,
+)
+
+
+def calculate_bbox_info_np(center, scale, orig_shape):
+    img_h, img_w = float(orig_shape[0]), float(orig_shape[1])
+    focal = np.sqrt(img_h**2 + img_w**2)
+    b = scale * 200.0
+    return np.array(
+        [
+            (center[0] - img_w / 2.0) / focal * 2.8,
+            (center[1] - img_h / 2.0) / focal * 2.8,
+            (b - 0.24 * focal) / (0.06 * focal),
+        ],
+        np.float32,
+    )
+
+
+def get_confident_frames(var: np.ndarray, threshold: float) -> np.ndarray:
+    """Frames whose root uncertainty is below threshold (reference
+    train_utils.py:31-45: the global uncertainty is joint 0's)."""
+    return np.nonzero(np.asarray(var)[:, 0] < threshold)[0]
+
+
+class PocoDataset:
+    """BaseDataset equivalent over an npz annotation file.
+
+    Args:
+        npz_file: annotation archive (schema above).
+        img_dir: image root joined with each imgname.
+        is_train: enables augmentation.
+        options: augmentation knobs (FLIP, NOISE_FACTOR, ROT_FACTOR,
+            SCALE_FACTOR, UNCERT_THRESHOLD, IMG_RES, TEST_ROT, TEST_SCALE);
+            the defaults mirror config.py.
+    """
+
+    def __init__(
+        self,
+        npz_file: str,
+        img_dir: str = "",
+        dataset_name: str = "",
+        is_train: bool = True,
+        use_augmentation: bool = True,
+        ignore_3d: bool = False,
+        num_images: int = 0,
+        options: dict | None = None,
+        seed: int = 0,
+    ):
+        self.img_dir = img_dir
+        self.dataset_name = dataset_name or os.path.basename(npz_file).split(".")[0]
+        self.is_train = is_train
+        self.use_augmentation = use_augmentation
+        self.options = dict(
+            FLIP=True, NOISE_FACTOR=0.4, ROT_FACTOR=30.0, SCALE_FACTOR=0.25,
+            IMG_RES=IMG_RES, UNCERT_THRESHOLD=0.3,  # config.py:98 / reference :125
+            TEST_ROT=0.0, TEST_SCALE=1.0,
+        )
+        self.options.update(options or {})
+        self.rng = np.random.RandomState(seed)
+
+        data = dict(np.load(npz_file, allow_pickle=True))
+        n = len(data["imgname"])
+
+        # Confident-frame subselection for POCO-labeled data
+        # (base_dataset.py:60-71).
+        if "var" in data:
+            sel = get_confident_frames(data["var"], self.options["UNCERT_THRESHOLD"])
+            data = {k: v[sel] for k, v in data.items()}
+            n = len(data["imgname"])
+        if num_images > 0:
+            sel = self.rng.randint(0, n, size=num_images)
+            data = {k: v[sel] for k, v in data.items()}
+            n = num_images
+
+        self.imgname = data["imgname"]
+        self.center = data["center"].astype(np.float32)
+        self.scale = data["scale"].astype(np.float32)
+
+        if "pose" in data and not ignore_3d:
+            self.pose = data["pose"].astype(np.float32)
+            self.betas = data["shape"].astype(np.float32)
+            self.has_smpl = data.get("has_smpl", np.ones(n, np.float32)).astype(np.float32)
+        else:
+            self.pose = np.zeros((n, 72), np.float32)
+            self.betas = np.zeros((n, 10), np.float32)
+            self.has_smpl = np.zeros(n, np.float32)
+
+        if "S" in data and not ignore_3d:
+            self.pose_3d = data["S"].astype(np.float32)
+            self.has_pose_3d = 1.0
+        else:
+            self.pose_3d = np.zeros((n, 24, 4), np.float32)
+            self.has_pose_3d = 0.0
+
+        kp_gt = data.get("part", np.zeros((n, 24, 3))).astype(np.float32)
+        kp_op = data.get("openpose", np.zeros((n, 25, 3))).astype(np.float32)
+        self.keypoints = np.concatenate([kp_op, kp_gt], axis=1)
+
+        gender = data.get("gender")
+        if gender is not None:
+            # m -> male, f -> female (the reference's two values,
+            # base_dataset.py:101-104); anything else (e.g. the synthetic
+            # sets' "n") -> -1 = neutral GT, not female.
+            self.gender = np.array(
+                [0 if str(g) == "m" else (1 if str(g) == "f" else -1) for g in gender],
+                np.int32,
+            )
+        else:
+            self.gender = -1 * np.ones(n, np.int32)
+        self.person_id = data.get("person_id", -1 * np.ones(n, np.int32))
+
+    def __len__(self) -> int:
+        return len(self.imgname)
+
+    def _load_image(self, index: int) -> np.ndarray:
+        cv2 = require_cv2()
+        path = os.path.join(self.img_dir, str(self.imgname[index]))
+        img = cv2.imread(path)
+        if img is None:
+            # one bounded retry for a transient file-system miss (the
+            # reference sleeps 500-1000 s, base_dataset.py:276-283)
+            time.sleep(0.5)
+            img = cv2.imread(path)
+        if img is None:
+            raise FileNotFoundError(path)
+        return img[:, :, ::-1].astype(np.float32)
+
+    def _sample_aug(self) -> AugmentParams:
+        if self.is_train and self.use_augmentation:
+            return sample_augment_params(
+                self.rng,
+                noise_factor=self.options["NOISE_FACTOR"],
+                rot_factor=self.options["ROT_FACTOR"],
+                scale_factor=self.options["SCALE_FACTOR"],
+                use_flip=self.options["FLIP"],
+            )
+        # Eval-time fixed augmentation for robustness studies
+        # (TESTING.TEST_ROT / TEST_SCALE).
+        return AugmentParams(
+            rot=float(self.options.get("TEST_ROT", 0.0)),
+            scale=float(self.options.get("TEST_SCALE", 1.0)),
+        )
+
+    def _finish_item(
+        self, index: int, aug: AugmentParams, crop: np.ndarray, orig_shape: np.ndarray
+    ) -> dict[str, Any]:
+        """The item dict of one sample around its crop."""
+        center = self.center[index].copy()
+        scale = float(self.scale[index])
+        kp2d = process_keypoints_2d(
+            self.keypoints[index].copy(), center, scale, aug, self.options["IMG_RES"]
+        )
+        bbox = np.array([[center[0], center[1], aug.scale * scale * 200.0]])
+        kp_fullimg = convert_crop_coords_to_orig_img(
+            bbox, kp2d[None].copy(), self.options["IMG_RES"]
+        )[0]
+        return {
+            "img": crop,  # (R, R, 3) float32 [0, 255]; normalized on the device
+            "pose": process_pose(self.pose[index], aug),
+            "betas": self.betas[index].copy(),
+            "pose_3d": process_keypoints_3d(self.pose_3d[index], aug),
+            "keypoints": kp2d,
+            "keypoints_fullimg": kp_fullimg,
+            "has_smpl": np.float32(self.has_smpl[index]),
+            "has_pose_3d": np.float32(self.has_pose_3d),
+            "scale": np.float32(aug.scale * scale),
+            "center": center.astype(np.float32),
+            "orig_shape": orig_shape,
+            "focal_length": np.float32(np.sqrt(orig_shape[0] ** 2 + orig_shape[1] ** 2)),
+            "bbox_info": calculate_bbox_info_np(center, aug.scale * scale, orig_shape),
+            "is_flipped": np.float32(aug.flip),
+            "rot_angle": np.float32(aug.rot),
+            "gender": np.int32(self.gender[index]),
+            "sample_index": np.int32(index),
+            "dataset_name": self.dataset_name,
+            "imgname": str(self.imgname[index]),
+        }
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        aug = self._sample_aug()
+        img = self._load_image(index)
+        orig_shape = np.array(img.shape[:2], np.float32)
+        crop = process_image(
+            img, self.center[index], aug.scale * float(self.scale[index]), aug,
+            self.options["IMG_RES"],
+        )
+        return self._finish_item(index, aug, crop, orig_shape)
+
+
+def collate(items: list[dict[str, Any]]) -> dict[str, Any]:
+    """Stack item dicts into a numpy batch (strings become lists)."""
+    batch: dict[str, Any] = {}
+    for key in items[0]:
+        vals = [it[key] for it in items]
+        batch[key] = vals if isinstance(vals[0], str) else np.stack(vals)
+    return batch
+
+
+class DataLoader:
+    """Batches of one process, assembled on a background thread that
+    keeps up to `prefetch` batches ready."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        prefetch: int = 2,
+        seed: int = 0,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[dict[str, Any]]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        n_batches = len(self)
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                for b in range(n_batches):
+                    idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                    if not put(collate([self.dataset[int(i)] for i in idxs])):
+                        return
+            except Exception as e:  # handed to the consumer, raised there
+                put(e)
+                return
+            put(None)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            # a consumer that stops early (max_batches) releases the thread
+            stop.set()
+            thread.join(timeout=60)

@@ -13,7 +13,10 @@ at odd sample counts (a pair with one sample), and at any 4-byte
 alignment of the tensors. The main paths (POCO-CLIFF, POCO-PARE, HMR)
 launch `skinning` once per SMPL forward and never `skinning_simt`; the
 flow head's forward runs on the card; a forward that would need the
-kernel's missing backward raises.
+kernel's missing backward raises. The eval step runs on the card as on
+the CPU (per-sample metrics within 1e-4 m), launches `skinning` 5 times
+a batch (7 with flip-TTA), its Procrustes matches float64 numpy, and
+flip-TTA of a flip-equivariant stub is exact.
 """
 
 import numpy as np
@@ -21,7 +24,10 @@ import pytest
 import torch
 
 import poco_tpu_torch.models.poco as port_poco
+from poco_tpu_torch.eval.checks import equivariant_case, procrustes_f64
 from poco_tpu_torch.demo.tester import detect_forward
+from poco_tpu_torch.eval.metrics import pa_mpjpe, procrustes_align
+from poco_tpu_torch.eval.runner import make_gendered_eval_step
 from poco_tpu_torch.models.backbones.common import Bottleneck
 from poco_tpu_torch.models.backbones.hrnet import HRNet
 from poco_tpu_torch.models.backbones.resnet import ResNet
@@ -29,6 +35,7 @@ from poco_tpu_torch.ops.rotation import axis_angle_to_rotmat
 from poco_tpu_torch.ops.skinning import skinning, skinning_reference, skinning_simt
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.smpl.lbs import smpl_forward
+from poco_tpu_torch.utils.weights import calibrate_batchnorm, randomize_batchnorm
 
 pytestmark = pytest.mark.gpu
 
@@ -57,7 +64,9 @@ def _inputs(batch, num_verts, seed, device):
     return [torch.from_numpy(a).to(device) for a in (w, tfms, vp)]
 
 
-@pytest.mark.parametrize("batch,num_verts", [(128, 6890), (3, 1001), (5, 1), (9, 257)])
+@pytest.mark.parametrize(
+    "batch,num_verts", [(128, 6890), (64, 6890), (16, 6890), (8, 6890), (3, 1001), (5, 1), (9, 257)]
+)
 def test_skinning_kernel_matches_plain(cuda, batch, num_verts):
     args = _inputs(batch, num_verts, seed=batch * num_verts, device=cuda)
     out = skinning(*args)
@@ -219,3 +228,81 @@ def test_forward_with_autograd_raises_through_the_kernel_guard(cuda, monkeypatch
     with pytest.raises(RuntimeError, match="no backward"):
         model(batch, smpl)
     assert skinning.launches == before
+
+
+def _eval_batch(seed, n, device):
+    """An eval batch: normalized crops, CLIFF conditioning, GT pose and
+    betas, every gender."""
+    rng = np.random.RandomState(seed)
+    center = rng.uniform(150, 450, (n, 2)).astype(np.float32)
+    scale = rng.uniform(0.8, 1.6, n).astype(np.float32)
+    orig = np.tile(np.asarray([[480.0, 640.0]], np.float32), (n, 1))
+    focal = np.full(n, 800.0, np.float32)
+    batch = {
+        "img": rng.randn(n, 224, 224, 3), "center": center, "scale": scale,
+        "orig_shape": orig, "focal_length": focal,
+        "bbox_info": np.stack([(center[:, 0] - 320) / focal * 2.8,
+                               (center[:, 1] - 240) / focal * 2.8,
+                               (scale * 200 - 0.24 * focal) / (0.06 * focal)], 1),
+        "pose": rng.uniform(-0.3, 0.3, (n, 72)), "betas": rng.uniform(-0.5, 0.5, (n, 10)),
+    }
+    batch = {k: torch.from_numpy(np.asarray(v, np.float32)).to(device) for k, v in batch.items()}
+    batch["gender"] = torch.tensor([-1, 0, 1] * n, dtype=torch.int32)[:n].to(device)
+    return batch
+
+
+@pytest.mark.parametrize("flip_test", [False, True])
+def test_eval_step_on_the_card_matches_the_cpu(cuda, monkeypatch, flip_test):
+    """The narrow POCO-CLIFF eval step on the card and on the CPU, same
+    weights, three SMPLs (V=6890): per-sample mpjpe, pa_mpjpe, v2v within
+    1e-4 m, var_pose within 2e-3, pose_dist within 1e-5; 5 skinning
+    launches a batch, 7 with flip-TTA, and none of the yardstick."""
+    cpu_model = _narrow(monkeypatch, "cliff", "cpu")
+    randomize_batchnorm(cpu_model, torch.Generator().manual_seed(1))
+    calibrate_batchnorm(
+        cpu_model.backbone, torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(2))
+    )
+    model = _narrow(monkeypatch, "cliff", cuda)
+    model.load_state_dict(cpu_model.state_dict())
+    smpls = [synthetic_smpl_model(num_verts=6890, seed=s, device="cpu") for s in (0, 1, 2)]
+    batch = _eval_batch(1, 4, "cpu")
+    before, before_simt = skinning.launches, skinning_simt.launches
+    card = make_gendered_eval_step(model, flip_test=flip_test)(
+        {k: v.to(cuda) for k, v in batch.items()}, *[s.to(cuda) for s in smpls]
+    )
+    torch.cuda.synchronize()
+    assert skinning.launches == before + (7 if flip_test else 5)
+    assert skinning_simt.launches == before_simt
+    cpu = make_gendered_eval_step(cpu_model, flip_test=flip_test)(batch, *smpls)
+    tols = {"mpjpe": 1e-4, "pa_mpjpe": 1e-4, "v2v": 1e-4, "var_pose": 2e-3, "pose_dist": 1e-5}
+    assert set(card) == set(cpu) == set(tols)
+    for key, atol in tols.items():
+        torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=0, atol=atol, msg=key)
+
+
+@pytest.mark.parametrize("case", ["noisy", "reflected", "coplanar"])
+def test_procrustes_on_the_card_matches_float64(cuda, case):
+    """cuSOLVER's batched SVD gives other signs than LAPACK; the aligned
+    joints must not care: within 1e-5 m of float64 numpy, at batch 256."""
+    rng = np.random.RandomState(["noisy", "reflected", "coplanar"].index(case))
+    gt = rng.randn(256, 14, 3).astype(np.float32)
+    pred = gt + 0.1 * rng.randn(256, 14, 3).astype(np.float32)
+    if case == "reflected":
+        pred[..., 0] *= -1
+    if case == "coplanar":
+        pred[..., 2] = 0.3
+    aligned = procrustes_align(torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda))
+    np.testing.assert_allclose(aligned.cpu().numpy(), procrustes_f64(pred, gt), atol=1e-5)
+    err = pa_mpjpe(torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda)).cpu()
+    assert err.shape == (256,) and bool(torch.isfinite(err).all())
+
+
+def test_flip_tta_of_an_equivariant_stub_on_the_card_is_exact(cuda):
+    """A model that reports the pose its (possibly mirrored) image depicts
+    (`checks.EquivariantStub`): flip-TTA must give the ground truth,
+    mpjpe and v2v 0 within 1e-4."""
+    stub, batch = equivariant_case(cuda, batch=4)
+    smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
+    m = make_gendered_eval_step(stub, flip_test=True)(batch, smpl, smpl, smpl)
+    torch.testing.assert_close(m["mpjpe"].cpu(), torch.zeros(4), rtol=0, atol=1e-4)
+    torch.testing.assert_close(m["v2v"].cpu(), torch.zeros(4), rtol=0, atol=1e-4)
