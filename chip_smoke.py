@@ -13,7 +13,9 @@ Phases, each of which raises (exit code 1) on failure:
      and its fp32-FMA yardstick (`skinning_simt`) against the plain torch
      version on the card, at every batch the main paths launch it with
      (B = 1, 2, 8, 16, 64, 128 at V=6890; the launch layout depends on B)
-     and a ragged shape;
+     and a ragged shape; the backward kernel (`skinning_backward`) against
+     its plain version at the same shapes (both gradients within 1e-5 x
+     max |plain| + 1e-7);
   4. main path at full width: POCO-CLIFF (HRNet-W48-cls, configs/
      poco_cliff.yaml) with seeded random weights and a V=6890 synthetic
      SMPL answers `detect_forward` requests of 1, 8 and 128 boxes on a
@@ -35,21 +37,37 @@ Phases, each of which raises (exit code 1) on failure:
      CPU, the card's Procrustes against float64 numpy, flip-TTA of a
      flip-equivariant stub exact, one batch of POCO-PARE; samples/s (and
      at batch 128 without flip-TTA), and whether the SVD syncs the host;
+  4f. training at full width: POCO-CLIFF (configs/poco_cliff.yaml) through
+     `Trainer.fit` for one epoch of 10 steps at the config's batch of 64 on
+     synthetic samples of the config's five-dataset mix, then validation
+     (`run_eval`) on 128 samples; every loss term finite at every step;
+     each step launches `skinning` twice and `skinning_backward` once;
+     resumed from `last`, one more step repeats the uninterrupted one
+     (loss within 1e-5 relative, cuDNN deterministic); card against CPU at
+     batch 2, dropout all-keep (loss within 1e-4 relative; each module
+     group's gradient within 1e-3 relative L2, or 3 x the CPU's own fp32
+     distance from float64 where fp32 cannot do better); the loss falls
+     over 13 steps on one batch; step ms and crops/s over 10 steps after 3;
   5. crops/s at batch 128, fp32: POCO-CLIFF with the kernel and, in turns,
      with the plain skinning in its place (the yardstick); POCO-PARE with
      the kernel;
   6. a torch.profiler trace of 128-crop requests of POCO-CLIFF and of
-     POCO-PARE, and of POCO-CLIFF's eval step on a batch of 64 with
-     flip-TTA off and on: device busy and idle share, the skinning
-     kernel's share, the top device kernels, the eval step's device time
-     by stage (its `EVAL_STAGES` profiler ranges); and the SMPL stage
-     alone with the kernel and with the plain skinning;
+     POCO-PARE, of POCO-CLIFF's eval step on a batch of 64 with flip-TTA
+     off and on, and of one POCO-CLIFF train step at batch 64: device busy
+     and idle share, the skinning kernels' share, the top device kernels,
+     the eval and train steps' device time by stage (their `EVAL_STAGES`
+     and `TRAIN_STAGES` profiler ranges); and the SMPL stage alone with the
+     kernel and with the plain skinning;
   7. kernel timing, last (after CUDA-graph capture the eager launches of
      phases 5 and 6 would run slower): both kernels at phase 3's shapes,
      in turns, from CUDA events around CUDA-graph replays, with the
      inputs hot in L2 and cold (rotating over sets larger than L2),
-     beside the card's bound for the same work.
-The line before the last is the kernels' JSON record; the last line is
+     beside the card's bound for the same work; 7b. the backward kernel
+     the same way at B = 64 and 128, beside autograd through the plain
+     forward.
+The line before the last is the kernels' JSON record (`skinning`,
+`skinning_simt`, `skinning_backward`, launches summed over phases
+4-4f); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -57,6 +75,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -77,7 +96,7 @@ from poco_tpu_torch.constants import (
     PW3D_OCCLUDED_SEQUENCES,
     PW3D_TEST_SEQUENCES,
 )
-from poco_tpu_torch.data.dataset import calculate_bbox_info_np
+from poco_tpu_torch.data.dataset import calculate_bbox_info_np, collate
 from poco_tpu_torch.demo.tester import detect_forward
 from poco_tpu_torch.eval import metrics as eval_metrics
 from poco_tpu_torch.eval import runner as eval_runner
@@ -92,13 +111,27 @@ from poco_tpu_torch.models.poco import build_hmr, build_poco_cliff, build_poco_p
 from poco_tpu_torch.ops import kernels
 from poco_tpu_torch.ops.preprocess import normalize_image, preprocess_crops
 from poco_tpu_torch.ops.rotation import average_rotmats, axis_angle_to_rotmat
-from poco_tpu_torch.ops.skinning import skinning, skinning_reference, skinning_simt
+from poco_tpu_torch.ops.skinning import (
+    skinning,
+    skinning_backward,
+    skinning_backward_reference,
+    skinning_reference,
+    skinning_simt,
+)
 from poco_tpu_torch.smpl import lbs as lbs_module
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.smpl.lbs import smpl_forward
+from poco_tpu_torch.train.step import TRAIN_STAGES
 from poco_tpu_torch.utils.weights import calibrate_batchnorm, randomize_batchnorm
 
 REPO = Path(__file__).resolve().parent
+# profiler ranges, which the profile mirrors on the device but are not
+# kernels: the steps' stages and torch.optim's own ("Optimizer.step#Adam.step")
+RANGES = set(EVAL_STAGES) | set(TRAIN_STAGES)
+
+
+def is_range(name: str) -> bool:
+    return name in RANGES or name.startswith("Optimizer.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +153,8 @@ PEAKS = {
 }
 
 SKIN_TOL = 1e-4       # kernel vs plain, fp32 sums in another order
+# backward kernel vs plain, both gradients: fp32 sums over V in another order
+BACKWARD_RTOL, BACKWARD_ATOL = 1e-5, 1e-7
 HEAD_TOL = 2e-3       # pred_cam / pred_shape / var_pose, card vs CPU
 METERS_TOL = 1e-4     # joints3d / vertices, card vs CPU (0.1 mm budget)
 GOLDEN_TOL = 5e-4     # vertices, the 0.5 mm golden-gate budget (BASELINE.md)
@@ -205,6 +240,12 @@ def skinning_inputs(batch: int, num_verts: int, seed: int):
     return [torch.from_numpy(a).cuda() for a in (w, tfms, vp)]
 
 
+def backward_grad(batch: int, num_verts: int, seed: int) -> torch.Tensor:
+    """An output gradient for the backward kernel: 0.1 x N(0, 1) a coordinate."""
+    rng = np.random.RandomState(seed + 1)
+    return torch.from_numpy(0.1 * rng.randn(batch, num_verts, 3).astype(np.float32)).cuda()
+
+
 def skinning_bytes(batch: int, num_verts: int) -> int:
     """W, the transforms and v_posed read once, out written once."""
     return 4 * (num_verts * 24 + batch * 24 * 16 + 2 * batch * num_verts * 3)
@@ -277,7 +318,8 @@ def cold_ms(fn, sets, calls: int = 40) -> float:
 
 # every batch size the main paths launch `skinning` with (the launch
 # layout, `group_size` in csrc/skinning.cu, depends on it): requests of
-# 128, 8, 1, card-vs-CPU checks of 2, eval batches of 64 and 16
+# 128, 8, 1, card-vs-CPU checks of 2, eval batches of 64 and 16, train
+# steps of 64 (and `skinning_backward` there)
 SKIN_SHAPES = ((128, 6890), (64, 6890), (16, 6890), (8, 6890), (2, 6890), (1, 6890),
                (3, 1001))
 
@@ -287,7 +329,9 @@ KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
 
 def phase_kernel_check() -> dict[str, float]:
     """`skinning` (v2) and `skinning_simt` (v1) against the plain version
-    at each shape; returns each one's largest error."""
+    at each shape, and `skinning_backward` against its plain version
+    (both gradients within 1e-5 x max |plain| + 1e-7); returns each one's
+    largest error."""
     print("== 3. kernel check")
     worst = {label: 0.0 for label in KERNELS_UNDER_TEST}
     for batch, num_verts in SKIN_SHAPES:
@@ -301,6 +345,18 @@ def phase_kernel_check() -> dict[str, float]:
                   f"{err:.3e} (tolerance {SKIN_TOL}, rtol 0)")
             check(err <= SKIN_TOL, f"skinning {label} disagrees with its plain version: {err}")
             worst[label] = max(worst[label], err)
+        grad_out = backward_grad(batch, num_verts, seed=batch + num_verts)
+        got = skinning_backward(*args, grad_out)
+        torch.cuda.synchronize()
+        ref = skinning_backward_reference(*args, grad_out)
+        for name, g, r in zip(("grad_v_posed", "grad_rel_tfms"), got, ref):
+            err = float((g - r).abs().max())
+            bar = BACKWARD_RTOL * float(r.abs().max()) + BACKWARD_ATOL
+            print(f"skinning_backward B={batch} V={num_verts} {name}: max_abs_err {err:.3e} "
+                  f"(tolerance {bar:.3e} = {BACKWARD_RTOL} x max |plain| {float(r.abs().max()):.3e} "
+                  f"+ {BACKWARD_ATOL})")
+            check(err <= bar, f"skinning_backward {name} disagrees with its plain version: {err}")
+            worst["backward"] = max(worst.get("backward", 0.0), err)
     return worst
 
 
@@ -344,6 +400,74 @@ def phase_kernel_timing(peaks: Peaks) -> dict:
                 "bound_ms": bound["ms"],
                 "bound_by": bound["by"],
             }
+    return times
+
+
+BACKWARD_SHAPES = ((64, 6890), (128, 6890))   # the training batch, and twice it
+
+
+def backward_bytes(batch: int, num_verts: int) -> int:
+    """W and the transforms read once, v_posed and the output gradient
+    read once, grad_v_posed and grad_rel_tfms written once."""
+    return 4 * (num_verts * 24 + 2 * batch * 24 * 16 + 3 * batch * num_verts * 3)
+
+
+def backward_bound(batch: int, num_verts: int, peaks: Peaks) -> dict:
+    """Least time for the backward's work, as `skinning_bound` reckons the
+    forward's: its bytes against its operations on the fastest engine that
+    keeps fp32 accuracy. Its two GEMM-shaped products, the 24 x 9 blend of
+    T's 3x3 block and the 24 x 12 W^T E of grad_rel_tfms, go to the tensor
+    cores as 3xTF32; the 9 FMAs of grad_v_posed and the 12 products
+    g[x] p[y] stay fp32, a (vertex, sample). `fp32_fma_ms` is all of it in
+    fp32 FMA, the operation bound of the kernel as it is written."""
+    per_vertex = batch * num_verts
+    t_bytes = backward_bytes(batch, num_verts) / peaks.bytes_per_s * 1e3
+    t_ops = (3 * 2 * 24 * (9 + 12) * per_vertex / peaks.tf32_flop_per_s
+             + (2 * 9 + 12) * per_vertex / peaks.fp32_flop_per_s) * 1e3
+    t_fma = (2 * (24 * 9 + 9 + 24 * 12) + 12) * per_vertex / peaks.fp32_flop_per_s * 1e3
+    return {"ms": max(t_bytes, t_ops), "by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "fp32_fma_ms": t_fma}
+
+
+def phase_backward_timing(peaks: Peaks) -> dict:
+    """The backward kernel hot and cold at the training batch and twice
+    it, in turns with its plain version, beside its bound and autograd
+    through `skinning_reference` (the plain forward's own backward)."""
+    print("== 7b. backward kernel timing")
+    times = None
+    for batch, num_verts in BACKWARD_SHAPES:
+        args = skinning_inputs(batch, num_verts, seed=batch + num_verts)
+        full = args + [backward_grad(batch, num_verts, seed=batch + num_verts)]
+        n = max(4, math.ceil(2 * 50 * 2**20 / backward_bytes(batch, num_verts)))
+        sets = [[a.clone() for a in full] for _ in range(n)]
+        hot, cold = [], []
+        for _ in range(2):
+            hot.append(hot_ms(skinning_backward, full))
+            cold.append(cold_ms(skinning_backward, sets))
+        plain_hot = hot_ms(skinning_backward_reference, full, calls=40)
+        tfms = args[1].clone().requires_grad_(True)
+        vp = args[2].clone().requires_grad_(True)
+
+        def autograd_plain():
+            return torch.autograd.grad(skinning_reference(args[0], tfms, vp), (tfms, vp), full[3])
+
+        auto_ms = cuda_ms(autograd_plain, iters=20)
+        del sets
+        bound = backward_bound(batch, num_verts, peaks)
+        print(f"skinning_backward B={batch} V={num_verts}: bound {bound['ms']:.5f} ms "
+              f"({bound['by']}: bytes {bound['bytes_ms']:.5f}, 3xTF32 products + fp32 rest "
+              f"{bound['ops_ms']:.5f}; fp32 FMA alone {bound['fp32_fma_ms']:.5f})")
+        for kind, ts in (("hot", hot), ("cold", cold)):
+            mean = statistics.fmean(ts)
+            print(f"  kernel {kind:4s} {mean:.5f} ms (turns {ts[0]:.5f}, {ts[1]:.5f}) = "
+                  f"{bound['ms'] / mean:.3f} of bound")
+        print(f"  plain (skinning_backward_reference) hot {plain_hot:.5f} ms; autograd through "
+              f"skinning_reference {auto_ms:.5f} ms (forward and backward, CUDA events); "
+              "no single PyTorch call computes it")
+        if times is None:  # the training batch
+            times = {"ms": statistics.fmean(hot), "cold_ms": statistics.fmean(cold),
+                     "plain_ms": plain_hot, "autograd_plain_ms": auto_ms,
+                     "bound_ms": bound["ms"], "bound_by": bound["by"]}
     return times
 
 
@@ -645,8 +769,6 @@ class SyntheticEvalSet:
 
 def device_batch(data, indices, device="cuda") -> dict:
     """Items of `data` collated and moved as `run_eval` moves them."""
-    from poco_tpu_torch.data.dataset import collate
-
     host = collate([data[i] for i in indices])
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in host.items() if not isinstance(v, list)}
@@ -861,6 +983,333 @@ def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
             "run_batch": {flip: (lambda s=s: s(batch, *smpls)) for flip, s in steps.items()}}
 
 
+# -- training ----------------------------------------------------------------
+
+TRAIN_STEPS = 10          # steps of the smoke's one epoch, at the config's batch
+TRAIN_VAL_SAMPLES = 128   # validation samples after the epoch
+TRAIN_LAUNCHES = (2, 1)   # skinning, skinning_backward launches a train step
+RESUME_RTOL = 1e-5        # loss of the resumed step against the uninterrupted run
+TRAIN_LOSS_RTOL = 1e-4    # loss, card against CPU, one step at batch 2
+GRAD_GROUP_RTOL = 1e-3    # a module group's gradient, card against CPU, relative L2
+GRAD_LEAF_ATOL = 1e-5     # with GRAD_GROUP_RTOL, a leaf's bar in L2 form (see train_card_vs_cpu)
+RESUME_PARAM_ATOL = 1e-7  # weights after the resumed step vs the uninterrupted run: 1e-3 of
+                          # the LR, which a fresh Adam's first step (lr g / |g|) would exceed
+TRAIN_DATASETS = ("h36m", "coco", "lspet", "mpii", "mpi-inf-3dhp-spin")
+TRAIN_RATIOS = (0.5, 0.233, 0.046, 0.021, 0.2)  # the config's DATASETS_AND_RATIOS
+
+
+class SyntheticTrainSet:
+    """An in-memory training set with `PocoDataset`'s item schema
+    (`poco_tpu_torch/data/dataset.py`, `_finish_item`) and no image files,
+    so no OpenCV: seeded float32 crops in [0, 255], GT pose uniform in
+    +-0.3 rad axis-angle, betas in +-0.5, 720x1280 frames, the five
+    datasets of the config's default mix drawn by its ratios (h36m rows
+    feed GT_POSE_COND). The GT 3D joints (h36m and MPI-INF rows; the others
+    carry none, has_pose_3d 0) come from the neutral SMPL on the CPU, and
+    `keypoints_fullimg` places them in the box, for KEYPOINT_2D_NONCROP."""
+
+    def __init__(self, n: int, seed: int, smpl_cpu):
+        from poco_tpu_torch.smpl.model import smpl_49
+
+        rng = np.random.RandomState(seed)
+        self.noise = rng.randint(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+        self.gain = rng.uniform(0.2, 1.0, n).astype(np.float32)
+        self.offset = rng.uniform(0.0, 120.0, n).astype(np.float32)
+        self.pose = rng.uniform(-0.3, 0.3, (n, 72)).astype(np.float32)
+        self.betas = rng.uniform(-0.5, 0.5, (n, 10)).astype(np.float32)
+        self.names = rng.choice(TRAIN_DATASETS, n, p=np.asarray(TRAIN_RATIOS) / sum(TRAIN_RATIOS))
+        self.orig_shape = np.asarray([720.0, 1280.0], np.float32)
+        self.center = np.stack([rng.uniform(300, 980, n), rng.uniform(200, 520, n)],
+                               axis=1).astype(np.float32)
+        self.scale = rng.uniform(1.5, 3.0, n).astype(np.float32)
+        joints = []
+        with torch.no_grad():
+            for lo in range(0, n, 64):
+                rot = axis_angle_to_rotmat(torch.from_numpy(self.pose[lo:lo + 64]).reshape(-1, 3))
+                _, j49 = smpl_49(smpl_cpu, torch.from_numpy(self.betas[lo:lo + 64]),
+                                 rot.reshape(-1, 24, 3, 3))
+                joints.append(j49.numpy())
+        self.joints = np.concatenate(joints)
+        self.has_3d = np.isin(self.names, ("h36m", "mpi-inf-3dhp-spin")).astype(np.float32)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __getitem__(self, i: int) -> dict:
+        crop = np.clip(self.offset[i] + self.gain[i] * self.noise[i], 0.0, 255.0)
+        h, w = self.orig_shape
+        box = self.scale[i] * 200.0
+        kp_full = np.concatenate([self.center[i] + 0.5 * box * self.joints[i, :, :2],
+                                  np.ones((49, 1), np.float32)], axis=1).astype(np.float32)
+        keypoints = kp_full.copy()
+        keypoints[:, :2] = 2.0 * (kp_full[:, :2] - self.center[i]) / box
+        pose_3d = np.concatenate([self.joints[i, 25:], np.ones((24, 1), np.float32)], axis=1)
+        return {
+            "img": crop.astype(np.float32),
+            "pose": self.pose[i],
+            "betas": self.betas[i],
+            "pose_3d": (pose_3d * self.has_3d[i]).astype(np.float32),
+            "keypoints": keypoints,
+            "keypoints_fullimg": kp_full,
+            "has_smpl": np.float32(1.0),
+            "has_pose_3d": self.has_3d[i],
+            "scale": self.scale[i],
+            "center": self.center[i],
+            "orig_shape": self.orig_shape,
+            "focal_length": np.float32(np.sqrt(h**2 + w**2)),
+            "bbox_info": calculate_bbox_info_np(self.center[i], self.scale[i], self.orig_shape),
+            "is_flipped": np.float32(0.0),
+            "rot_angle": np.float32(0.0),
+            "gender": np.int32(-1),
+            "sample_index": np.int32(i),
+            "dataset_name": str(self.names[i]),
+            "imgname": f"synthetic/{self.names[i]}/{i:05d}.jpg",
+        }
+
+
+def train_hparams(logdir: str):
+    hparams = update_hparams(str(REPO / "configs/poco_cliff.yaml"))
+    hparams.LOG_DIR = logdir
+    hparams.TRAINING.MAX_EPOCHS = 1
+    hparams.TRAINING.LOG_SAVE_INTERVAL = 1   # every step's loss terms in metrics.jsonl
+    return hparams
+
+
+def counted_steps(trainer, counts: list, losses: list):
+    """Wrap the trainer's step: per step, the skinning and backward
+    launches it made and its loss terms (fetched, so each step is checked
+    finite)."""
+    inner = trainer.train_step
+
+    def step(batch, smpl):
+        fwd, bwd = skinning.launches, skinning_backward.launches
+        metrics = inner(batch, smpl)
+        counts.append((skinning.launches - fwd, skinning_backward.launches - bwd))
+        losses.append({k: float(v) for k, v in metrics.items() if k.startswith("loss/")})
+        return metrics
+
+    trainer.train_step = step
+
+
+def loss_and_grads(model, batch, smpl, loss_cfg, relu) -> tuple[float, dict]:
+    """One forward and backward in train mode (no optimizer step), the
+    forward inside the context `relu` (a `ReluMasks` record or replay):
+    the loss and each parameter's gradient, in float64 on the CPU."""
+    from poco_tpu_torch.losses.losses import poco_loss
+    from poco_tpu_torch.train.step import prepare_gt
+
+    gt = prepare_gt(batch, smpl)
+    model.train()
+    with relu:
+        out = model(dict(batch, gt_pose_rotmat=gt["gt_pose_rotmat"]), smpl)
+    loss, _ = poco_loss(out, gt, loss_cfg)
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+
+
+def to64(tree):
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: getattr(tree, f.name).double() for f in dataclasses.fields(tree)
+            if torch.is_tensor(getattr(tree, f.name)) and getattr(tree, f.name).is_floating_point()
+        })
+    return {k: v.double() if v.is_floating_point() else v for k, v in tree.items()}
+
+
+def train_card_vs_cpu(trainer, data) -> None:
+    """One full-width step's loss and gradients at batch 2, the same weights
+    and batch on the card and on the CPU, dropout all-keep on both. Both
+    take the ReLU branches of the CPU's float64 forward (`train.checks.
+    ReluMasks`: without them, the units that rounding puts on the other
+    side of 0 move the backbone's gradient by whole units, a few % in
+    relative L2; printed). The loss within TRAIN_LOSS_RTOL; each module
+    group's gradient within GRAD_GROUP_RTOL relative L2; each leaf within
+    the L2 form of atol GRAD_LEAF_ATOL + rtol GRAD_GROUP_RTOL."""
+    from poco_tpu_torch.models import layers
+    from poco_tpu_torch.train.checks import ReluMasks
+
+    keep = layers.dropout_keep_mask
+    layers.dropout_keep_mask = lambda x, p: torch.ones_like(x, dtype=torch.bool)
+    masks = ReluMasks()
+    try:
+        host = collate([data[i] for i in range(2)])
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()
+                 if not isinstance(v, list)}
+        batch["img"] = normalize_image(batch["img"])
+        batch["gt_pose_cond_mask"] = torch.tensor([True, False])
+        smpl_cpu = trainer.smpl.to("cpu")
+        cpu_model = copy.deepcopy(trainer.model).cpu()
+        f64_loss, f64 = loss_and_grads(copy.deepcopy(cpu_model).double(), to64(batch),
+                                       to64(smpl_cpu), trainer.loss_cfg, masks.record())
+        card_batch = {k: v.cuda() for k, v in batch.items()}
+        _, free = loss_and_grads(copy.deepcopy(trainer.model), card_batch, trainer.smpl,
+                                 trainer.loss_cfg, contextlib.nullcontext())
+        card_loss, card = loss_and_grads(copy.deepcopy(trainer.model), card_batch,
+                                         trainer.smpl, trainer.loss_cfg, masks.replay())
+        card_flips = masks.flips
+        cpu_loss, cpu = loss_and_grads(cpu_model, batch, smpl_cpu, trainer.loss_cfg,
+                                       masks.replay())
+        cpu_flips = masks.flips
+    finally:
+        layers.dropout_keep_mask = keep
+    print(f"train card vs cpu, batch 2, dropout all-keep, ReLU branches of the float64 forward "
+          f"({masks.units} units; the card's fp32 forward puts {card_flips}, the CPU's "
+          f"{cpu_flips} on the other side of 0)")
+    err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"  loss card {card_loss:.6f} cpu {cpu_loss:.6f} float64 {f64_loss:.6f}: relative "
+          f"{err:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+    check(err <= TRAIN_LOSS_RTOL, f"train step loss: card and CPU disagree by {err}")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def group(names):
+        return lambda grads: torch.cat([grads[k].reshape(-1) for k in names])
+
+    by_group = {}
+    for name in cpu:
+        by_group.setdefault(name.split(".")[0], []).append(name)
+    for name, leaves in by_group.items():
+        flat = group(leaves)
+        vs_cpu = rel(flat(card), flat(cpu))
+        print(f"  gradient {name}: card vs cpu relative L2 {vs_cpu:.3e} (tolerance "
+              f"{GRAD_GROUP_RTOL}); card vs float64 {rel(flat(card), flat(f64)):.3e}, cpu vs "
+              f"float64 {rel(flat(cpu), flat(f64)):.3e}; card without the masks vs float64 "
+              f"{rel(flat(free), flat(f64)):.3e}")
+        check(vs_cpu <= GRAD_GROUP_RTOL, f"train {name} gradient: card and CPU disagree by {vs_cpu}")
+    worst = (0.0, "")
+    for name in cpu:
+        err = float((card[name] - cpu[name]).norm())
+        bar = GRAD_GROUP_RTOL * float(cpu[name].norm()) + GRAD_LEAF_ATOL * cpu[name].numel() ** 0.5
+        check(err <= bar, f"train gradient leaf {name}: card vs CPU {err:.3e} > {bar:.3e}")
+        worst = max(worst, (err / bar, name))
+    print(f"  every one of {len(cpu)} gradient leaves within |card - cpu| <= {GRAD_GROUP_RTOL} "
+          f"|cpu| + {GRAD_LEAF_ATOL} sqrt(n); the closest to its bar: {worst[1]} at "
+          f"{worst[0]:.3f} of it")
+
+
+def phase_train(ctx: dict, seed: int, card: str) -> dict:
+    """Training at full width: POCO-CLIFF through `Trainer.fit` for one
+    epoch of TRAIN_STEPS steps at the config's batch, validation on
+    TRAIN_VAL_SAMPLES samples, resume from `last`, card against CPU, step
+    time. Returns the main path's launches and a device batch and step for
+    the profile."""
+    import tempfile
+
+    from poco_tpu_torch.train.step import make_train_step
+    from poco_tpu_torch.train.trainer import Trainer
+
+    print("== 4f. training at full width: POCO-CLIFF Trainer.fit, synthetic samples")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    hparams = train_hparams(tmp.name)
+    batch_size = hparams.DATASET.BATCH_SIZE
+    check(batch_size == 64, f"configs/poco_cliff.yaml trains at batch {batch_size}, not 64")
+    smpl = ctx["smpl"]
+    data = SyntheticTrainSet(TRAIN_STEPS * batch_size, seed + 31, smpl.to("cpu"))
+    val = SyntheticEvalSet(TRAIN_VAL_SAMPLES, seed + 32)
+    names, counts_by_name = np.unique(data.names, return_counts=True)
+    print(f"{len(data)} training samples ({dict(zip(names.tolist(), counts_by_name.tolist()))}), "
+          f"{len(val)} validation samples, batch {batch_size}, fp32, TF32 off")
+
+    def new_trainer():
+        return Trainer(hparams, smpl, train_dataset_fn=lambda epoch: data, val_dataset=val,
+                       device="cuda")
+
+    trainer = new_trainer()
+    # phase 4's weights: seeded, BN randomized and calibrated
+    trainer.model.load_state_dict(ctx["model"].state_dict())
+    print(f"config: {trainer.model.cfg}; loss: {trainer.loss_cfg}")
+    counts, losses = [], []
+    counted_steps(trainer, counts, losses)
+
+    skinning.launches = skinning_backward.launches = skinning_simt.launches = 0
+    start = time.perf_counter()
+    summary = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - start
+    launches = {"skinning": skinning.launches, "skinning_backward": skinning_backward.launches}
+    n_val = math.ceil(TRAIN_VAL_SAMPLES / batch_size) * EVAL_LAUNCHES[False]
+    print(f"fit: {len(counts)} steps and validation in {fit_s:.3f} s; launches skinning "
+          f"{launches['skinning']} (validation {n_val}), skinning_backward "
+          f"{launches['skinning_backward']}, skinning_simt {skinning_simt.launches}; per step "
+          f"{sorted(set(counts))}")
+    check(len(counts) == TRAIN_STEPS, f"train: {len(counts)} steps, not {TRAIN_STEPS}")
+    check(all(c == TRAIN_LAUNCHES for c in counts),
+          f"train: each step must launch skinning 2 and skinning_backward 1 times: {counts}")
+    check(launches["skinning"] == TRAIN_LAUNCHES[0] * TRAIN_STEPS + n_val,
+          "train: validation must launch skinning 5 times a batch")
+    check(skinning_simt.launches == 0, "train: the yardstick kernel ran on the main path")
+    for i, terms in enumerate(losses):
+        check(all(math.isfinite(v) for v in terms.values()), f"train step {i}: {terms}")
+    print(f"train losses by step: {[round(t['loss/total_loss'], 4) for t in losses]}")
+    print(f"train first step: {json.dumps(losses[0])}")
+    check(all(math.isfinite(v) for v in summary.values()), f"validation: {summary}")
+    print(f"validation summary: {json.dumps(summary)}")
+    with open(Path(tmp.name) / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f if '"loss/total_loss"' in line]
+    check(len([r for r in logged if "step" in r]) == TRAIN_STEPS, "train: steps missing in the log")
+
+    # resume from `last`: one more step, against the same step without the
+    # restart; the weights after it read the restored Adam moments too
+    host = collate([data[i] for i in range(batch_size)])
+    batch = trainer._device_batch(host)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    torch.backends.cudnn.deterministic = True
+    try:
+        uninterrupted = trainer.train_step(batch, smpl)
+        resumed_trainer = new_trainer()
+        resumed_trainer.load_checkpoint(str(Path(tmp.name) / "last"))
+        resumed = resumed_trainer.train_step(batch, smpl)
+        a, b = (float(m["loss/total_loss"]) for m in (uninterrupted, resumed))
+        ga, gb = (float(m["grad_norm"]) for m in (uninterrupted, resumed))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    after = [p.detach() for p in trainer.model.parameters()]
+    moved = max(float((p - q).abs().max()) for p, q in zip(after, before))
+    off = max(float((p - q.detach()).abs().max())
+              for p, q in zip(after, resumed_trainer.model.parameters()))
+    del before
+    err = abs(a - b) / abs(a)
+    print(f"resume from last (cudnn.deterministic): step loss uninterrupted {a:.7f}, resumed "
+          f"{b:.7f}, relative {err:.3e} (tolerance {RESUME_RTOL}); grad_norm {ga:.7f} / {gb:.7f}; "
+          f"weights after the step: largest difference {off:.3e} (tolerance {RESUME_PARAM_ATOL}; "
+          f"the step itself moved a weight by up to {moved:.3e})")
+    check(resumed_trainer.epoch == 1 and resumed_trainer.step == TRAIN_STEPS,
+          "resume: epoch or step counter not restored")
+    check(err <= RESUME_RTOL, f"resume: the resumed step's loss is off by {err}")
+    check(off <= RESUME_PARAM_ATOL, f"resume: the weights after the resumed step are off by {off}")
+    resumed_trainer.close()
+    del resumed_trainer, uninterrupted, resumed
+    torch.cuda.empty_cache()
+
+    train_card_vs_cpu(trainer, data)
+
+    # step time: one batch, 3 warm-up and 10 timed steps; the loss must fall
+    step = make_train_step(trainer.model, trainer.optimizer, trainer.loss_cfg)
+    totals, times = [], []
+    for i in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch, smpl)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        totals.append(float(metrics["loss/total_loss"]))
+        check(all(math.isfinite(float(v)) for k, v in metrics.items() if not k.startswith("_")),
+              f"overfit step {i}: not finite")
+    print(f"overfitting one batch of {batch_size}: total loss {[round(t, 4) for t in totals]}")
+    check(totals[-1] < totals[0], "train: the loss did not fall over 13 steps on one batch")
+    ts = times[3:]
+    med = statistics.median(ts)
+    print(f"train step fp32, batch {batch_size}, POCO-CLIFF, {len(ts)} steps after 3 warm-up: "
+          f"median {med * 1e3:.3f} ms (min {min(ts) * 1e3:.3f}, max {max(ts) * 1e3:.3f}) = "
+          f"{batch_size / med:.1f} crops/s (min {batch_size / max(ts):.1f}, max "
+          f"{batch_size / min(ts):.1f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    trainer.close()
+    return {"launches": launches, "run_step": lambda: step(batch, smpl), "tmp": tmp}
+
+
 def timed_requests(run, reps: int) -> list[float]:
     times = []
     for _ in range(reps):
@@ -917,14 +1366,43 @@ def launched_us(event) -> float:
     """Device time of the kernels launched under a CPU event of a profile,
     its children's included (profiler ranges mirrored on the device are
     not kernels and are left out)."""
-    return (sum(k.duration for k in event.kernels if k.name not in EVAL_STAGES)
+    return (sum(k.duration for k in event.kernels if not is_range(k.name))
             + sum(launched_us(c) for c in event.cpu_children))
 
 
-def profile_request(label: str, run, card: str) -> None:
-    """Device busy and idle share, ops, the skinning kernel's share and the
-    top device kernels of `run` (one request, or one eval step), over 3
-    calls; for the eval step, its device time by `EVAL_STAGES` range."""
+def staged_us(prof, stages) -> dict[str, float]:
+    """Device time of the kernels launched inside each profiler range of
+    `stages`. The eval step's ranges hold their ops as children; a train
+    step's backward runs on autograd's own threads, so there each kernel
+    goes to the range whose host time window holds its launching op."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    out = {name: 0.0 for name in stages}
+    if stages == EVAL_STAGES:
+        for e in events:
+            if e.name in out:
+                out[e.name] += launched_us(e)
+        return out
+    windows = [(e.time_range.start, e.time_range.end, e.name) for e in events if e.name in out]
+    for e in events:
+        kernels = [k for k in e.kernels if not is_range(k.name)]
+        if not kernels:
+            continue
+        for start, end, name in windows:
+            if start <= e.time_range.start <= end:
+                out[name] += sum(k.duration for k in kernels)
+                break
+    return out
+
+
+SKIN_KERNELS = {"skinning": ("skin_tc_kernel",),
+                "skinning_backward": ("grad_pass", "reduce_pass")}
+
+
+def profile_request(label: str, run, card: str, stages=EVAL_STAGES) -> None:
+    """Device busy and idle share, ops, the skinning kernels' share and the
+    top device kernels of `run` (one request, eval step or train step),
+    over 3 calls; for the eval and train steps, their device time by
+    profiler range (`EVAL_STAGES`, `TRAIN_STAGES`)."""
     from torch.profiler import ProfilerActivity, profile
 
     n = 3
@@ -938,7 +1416,7 @@ def profile_request(label: str, run, card: str) -> None:
         wall_us = (time.perf_counter() - start) * 1e6
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in EVAL_STAGES
+        if e.device_type == torch.autograd.DeviceType.CUDA and not is_range(e.name)
     )
     if not spans:
         print(f"{label} device time: not measured (the profiler recorded no device events)")
@@ -948,32 +1426,32 @@ def profile_request(label: str, run, card: str) -> None:
         busy += max(0.0, s1 - max(s0, end))
         end = max(end, s1)
         by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
-    skin_us = sum(t for name, t in by_name.items() if "skin_tc_kernel" in name)
     print(f"{label}: device busy {busy / n / 1e3:.3f} ms a call of "
           f"{wall_us / n / 1e3:.3f} ms wall: busy share {busy / wall_us:.4f}, "
           f"idle share {1 - busy / wall_us:.4f}, on {card}")
-    print(f"{label}: skinning kernel {skin_us / n / 1e3:.4f} ms a call = "
-          f"{skin_us / busy:.5f} of device time; {len(spans) // n} device ops a call")
+    for kernel, marks in SKIN_KERNELS.items():
+        t = sum(v for name, v in by_name.items() if any(m in name for m in marks))
+        if t > 0:
+            print(f"{label}: {kernel} kernel {t / n / 1e3:.4f} ms a call = "
+                  f"{t / busy:.5f} of device time")
+    print(f"{label}: {len(spans) // n} device ops a call")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {t / busy:7.4f}  {t / n / 1e3:9.4f} ms  {name[:100]}")
-    stages = {name: 0.0 for name in EVAL_STAGES}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name in stages:
-            stages[e.name] += launched_us(e)
-    staged = sum(stages.values())
-    if staged > 0:
+    staged = staged_us(prof, stages)
+    total = sum(staged.values())
+    if total > 0:
         print(f"{label}: device time by stage (kernels launched in each profiler range), "
-              f"{staged / n / 1e3:.3f} ms a call in all:")
-        for name, t in stages.items():
+              f"{total / n / 1e3:.3f} ms a call in all:")
+        for name, t in staged.items():
             if t > 0:
-                print(f"  {name:20s} {t / n / 1e3:9.4f} ms = {t / staged:.4f}")
+                print(f"  {name:20s} {t / n / 1e3:9.4f} ms = {t / total:.4f}")
 
 
-def phase_profile(ctx: dict, pare: dict, evaluation: dict, card: str) -> None:
+def phase_profile(ctx: dict, pare: dict, evaluation: dict, train: dict, card: str) -> None:
     """Where a 128-crop request spends device time (torch.profiler), for
-    POCO-CLIFF and POCO-PARE, the SMPL stage alone, and one eval step on a
-    batch of 64 with flip-TTA off and on (the device-side batch, without
-    the loader)."""
+    POCO-CLIFF and POCO-PARE, the SMPL stage alone, one eval step on a
+    batch of 64 with flip-TTA off and on, and one train step at batch 64
+    (device-side batches, without the loader)."""
     print("== 6. profile: one 128-crop request")
     c, s = ctx["request"]
     smpl = ctx["smpl"]
@@ -996,6 +1474,8 @@ def phase_profile(ctx: dict, pare: dict, evaluation: dict, card: str) -> None:
     )
     for flip, run in evaluation["run_batch"].items():
         profile_request(f"eval step, POCO-CLIFF, batch 64, flip_test={flip}", run, card)
+    profile_request("train step, POCO-CLIFF, batch 64, fp32", train["run_step"], card,
+                    stages=TRAIN_STAGES)
 
 
 def main() -> int:
@@ -1015,25 +1495,35 @@ def main() -> int:
     hmr_launches = phase_hmr(ctx, args.seed)
     evaluation = phase_eval(ctx, pare, args.seed, card)
     eval_launches = evaluation["launches"]
+    train = phase_train(ctx, args.seed, card)
+    train_launches = train["launches"]
     launches = (ctx["launches"] + pare["launches"] + flow_launches + hmr_launches
-                + eval_launches)
+                + eval_launches + train_launches["skinning"])
     print(f"skinning launches on the main paths: {launches} (cliff {ctx['launches']}, "
           f"pare {pare['launches']}, flow {flow_launches}, hmr {hmr_launches}, "
-          f"eval {eval_launches})")
+          f"eval {eval_launches}, train {train_launches['skinning']}); skinning_backward "
+          f"{train_launches['skinning_backward']} (train); skinning_simt 0")
     phase_throughput(ctx, pare, args.reps, card)
-    phase_profile(ctx, pare, evaluation, card)
+    phase_profile(ctx, pare, evaluation, train, card)
+    train["tmp"].cleanup()
     times = phase_kernel_timing(peaks)
-    record = {
-        "name": "skinning",
-        "route": "cuda",
-        "source": "poco_tpu_torch/csrc/skinning.cu",
-        "replaces": "poco_tpu/ops/pallas_lbs.py:87",
-        "launches": launches,
-        "max_abs_err": errs["v2"],
-        **times,
-        "library_ms": None,
-    }
-    print(json.dumps({"kernels": [record]}))
+    backward_times = phase_backward_timing(peaks)
+    common = {"route": "cuda", "replaces": "poco_tpu/ops/pallas_lbs.py:87", "library_ms": None}
+    records = [
+        {"name": "skinning", "source": "poco_tpu_torch/csrc/skinning.cu", **common,
+         "launches": launches, "max_abs_err": errs["v2"],
+         **{k: v for k, v in times.items() if not k.startswith("earlier")}},
+        {"name": "skinning_simt", "source": "poco_tpu_torch/csrc/skinning_simt.cu", **common,
+         "launches": 0, "max_abs_err": errs["v1"], "ms": times["earlier_ms"],
+         "cold_ms": times["earlier_cold_ms"], "plain_ms": times["plain_ms"],
+         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]},
+        # the JAX package differentiates its einsum path with XLA: no Pallas kernel
+        {"name": "skinning_backward", "source": "poco_tpu_torch/csrc/skinning_backward.cu",
+         **common, "replaces": "poco_tpu/smpl/lbs.py:177",
+         "launches": train_launches["skinning_backward"], "max_abs_err": errs["backward"],
+         **backward_times},
+    ]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({
         "ok": True,
         "device": {

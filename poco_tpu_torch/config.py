@@ -1,15 +1,23 @@
-"""Experiment configuration: the hparams tree, YAML merge, model config.
+"""Experiment configuration: the hparams tree, YAML merge, grid search,
+and the bridges to the model, loss and optimizer settings.
 
-Port of the parts of `poco_tpu.config` that build a model: the same key
-tree (general / DATASET / OPTIMIZER / TRAINING / TESTING / SPIN / POCO,
-reference pocolib/core/config.py:84-229), YAML files merged over the
-defaults with unknown keys refused, `model_config_from_hparams`, which
-returns the port's `PocoConfig`, and the dataset-file registry.
+Port of `poco_tpu.config`: the same key tree (general / DATASET /
+OPTIMIZER / TRAINING / TESTING / SPIN / POCO, reference
+pocolib/core/config.py:84-229), YAML files merged over the defaults with
+unknown keys refused, the grid-search expansion where a list-valued YAML
+leaf is a sweep axis (`--cfg_id` picks one experiment, config.py:251-332),
+the dataset-file registry, and the bridges: `model_config_from_hparams`
+(the port's `PocoConfig`), `loss_config_from_hparams` (`LossConfig`),
+`parse_module_lr` and `parse_freeze_params`, which name the port's
+modules `backbone`, `head`, `uncert_head` and `flow_head`.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import os
+import time
 from typing import Any
 
 import yaml
@@ -27,6 +35,9 @@ class CfgNode(dict):
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
 
+    def clone(self) -> "CfgNode":
+        return copy.deepcopy(self)
+
     def merge_from_dict(self, other: dict, _path: str = "") -> None:
         for k, v in other.items():
             if k not in self:
@@ -42,6 +53,9 @@ class CfgNode(dict):
     def merge_from_file(self, path: str) -> None:
         with open(path) as f:
             self.merge_from_dict(yaml.safe_load(f) or {})
+
+    def to_dict(self) -> dict:
+        return {k: v.to_dict() if isinstance(v, CfgNode) else v for k, v in self.items()}
 
 
 # npz filename registry (reference config.py:66-81, DATASET_FILES):
@@ -249,6 +263,92 @@ def update_hparams_from_dict(cfg_dict: dict) -> CfgNode:
     return hparams
 
 
+def _flatten(d: dict, prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in d.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten(d: dict[str, Any]) -> dict:
+    out: dict = {}
+    for k, v in d.items():
+        parts = k.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def get_grid_search_configs(
+    config: dict, excluded_keys: list[str] = ()
+) -> tuple[list[dict], list[str]]:
+    """Expand list-valued leaves into a cartesian experiment matrix
+    (reference config.py:251-309). Keys in `excluded_keys` keep their list
+    value instead of becoming sweep axes. Returns the experiments and the
+    axes of more than one value."""
+    flat = _flatten(config)
+    axes: list[str] = []
+    for k, v in flat.items():
+        if isinstance(v, list) and k not in excluded_keys:
+            if len(v) > 1:
+                axes.append(k)
+        else:
+            flat[k] = [v]
+    keys = list(flat)
+    experiments = [
+        _unflatten(dict(zip(keys, combo)))
+        for combo in itertools.product(*(flat[k] for k in keys))
+    ]
+    return experiments, axes
+
+
+def run_grid_search_experiments(
+    cfg_file: str, cfg_id: int = 0, log: bool = True, logdir: str | None = None
+) -> CfgNode:
+    """Experiment `cfg_id` of the file's matrix, with its logdir set up
+    (reference config.py:312-400, without the cluster hand-off).
+
+    `logdir` pins the run to that directory instead of a timestamped one
+    under LOG_DIR/METHOD/EXP_NAME, so a restarted run with --resume keeps
+    appending to the same checkpoints and logs. With `log`, the merged
+    config is written there as config_to_run.yaml.
+    """
+    with open(cfg_file) as f:
+        cfg = yaml.safe_load(f)
+    experiments, axes = get_grid_search_configs(cfg)
+    config = update_hparams_from_dict(experiments[cfg_id])
+
+    config.EXP_ID += f"{config.EXP_NAME}_ID{cfg_id:02d}"
+    exp_id = ""
+    for axis in axes:
+        node: Any = experiments[cfg_id]
+        for part in axis.split("/"):
+            node = node[part]
+        exp_id += f'{axis.replace("/", ".").replace("_", "").lower()}-{node}'
+    if exp_id:
+        config.EXP_ID += f"/{exp_id}"
+
+    if logdir is not None:
+        logdir = os.path.abspath(logdir)
+    else:
+        name = f"{config.EXP_NAME}_ID{cfg_id:02d}_{time.strftime('%d-%m-%Y_%H-%M-%S')}"
+        if exp_id:
+            name += f"_{exp_id}"
+        logdir = os.path.join(config.LOG_DIR, config.METHOD, config.EXP_NAME, name)
+    if log:
+        os.makedirs(logdir, exist_ok=True)
+        with open(os.path.join(logdir, "config_to_run.yaml"), "w") as f:
+            yaml.safe_dump(config.to_dict(), f, default_flow_style=False)
+    config.LOG_DIR = logdir
+    return config
+
+
 def _int_list(spec) -> tuple[int, ...]:
     return tuple(int(x) for x in str(spec).split("-") if x)
 
@@ -290,3 +390,64 @@ def model_config_from_hparams(hparams: CfgNode):
         loss_ver="mse",
         gt_pose_cond=False,
     )
+
+
+def loss_config_from_hparams(hparams: CfgNode):
+    """POCO.* / SPIN.* loss keys -> the port's LossConfig."""
+    from .losses.losses import LossConfig
+
+    p = hparams.POCO if hparams.METHOD == "poco" else hparams.SPIN
+    kwargs = dict(
+        shape_loss_weight=p.SHAPE_LOSS_WEIGHT,
+        keypoint3d_loss_weight=p.KEYPOINT_3D_LOSS_WEIGHT,
+        keypoint2d_loss_weight=p.KEYPOINT_2D_LOSS_WEIGHT,
+        keypoint2d_noncrop=p.KEYPOINT_2D_NONCROP,
+        pose_loss_weight=p.POSE_LOSS_WEIGHT,
+        beta_loss_weight=p.BETA_LOSS_WEIGHT,
+        openpose_train_weight=p.OPENPOSE_TRAIN_WEIGHT,
+        gt_train_weight=p.GT_TRAIN_WEIGHT,
+        loss_weight=p.LOSS_WEIGHT,
+        use_smpl_render_loss=bool(hparams.TRAINING.USE_SMPL_RENDER_LOSS),
+        use_smpl_segm_loss=bool(hparams.TRAINING.USE_SMPL_SEGM_LOSS),
+        smpl_render_loss_weight=p.SMPL_RENDER_LOSS_WEIGHT,
+        smpl_segm_loss_weight=p.SMPL_SEGM_LOSS_WEIGHT,
+    )
+    if hparams.METHOD == "poco":
+        kwargs.update(
+            pose_uncert_weight=p.POSE_UNCERT_WEIGHT,
+            beta_uncert_weight=p.BETA_UNCERT_WEIGHT,
+            nf_loss_weight=p.NF_LOSS_WEIGHT,
+            loss_ver=p.LOSS_VER,
+            uncert_type=p.UNCERT_TYPE,
+            exclude_uncert_idx=_int_list(p.EXCLUDE_UNCERT_IDX),
+        )
+    else:
+        kwargs.update(loss_ver="mse", uncert_type="", nf_loss_weight=0.0)
+    return LossConfig(**kwargs)
+
+
+# the port's top-level modules, in MODULE_LR's order (reference
+# trainer.py:592-605: backbone, head, uncertainty head, flow head)
+MODULE_GROUPS = ("backbone", "head", "uncert_head", "flow_head")
+# the JAX package's names of the same modules
+_MODULE_ALIASES = {"backbone_net": "backbone"}
+
+
+def parse_module_lr(spec: str) -> dict[str, float]:
+    """'0.1_0.1_1.0_1.0' -> per-module LR multipliers of backbone, head,
+    uncert_head and flow_head."""
+    if not spec:
+        return {}
+    return dict(zip(MODULE_GROUPS, (float(x) for x in spec.split("_"))))
+
+
+def parse_freeze_params(spec: str) -> dict[int, list[str]]:
+    """'0-backbone-head,1-flow_head' -> {epoch: [module, ...]} (reference
+    train_utils.py:105-116); the JAX name `backbone_net` maps to `backbone`."""
+    out: dict[int, list[str]] = {}
+    for part in spec.split(","):
+        if not part:
+            continue
+        bits = part.split("-")
+        out[int(bits[0])] = [_MODULE_ALIASES.get(b, b) for b in bits[1:]]
+    return out

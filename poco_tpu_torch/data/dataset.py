@@ -1,5 +1,5 @@
-"""npz-annotation dataset and batching on the host (port of the evaluation
-path of `poco_tpu.data.dataset`).
+"""npz-annotation dataset and batching on the host (port of
+`poco_tpu.data.dataset` for one process).
 
 Reference contract: pocolib/dataset/base_dataset.py. The npz schema is
 unchanged: imgname, center, scale, and optionally pose (72), shape (10),
@@ -9,7 +9,7 @@ the GT meshes happen on the device, in the eval step. Images are read and
 cropped with OpenCV, imported when an item is read.
 
 Not ported yet: the JAX package's native whole-batch decoder, synthetic
-occlusion, the sharded loader and `ResumableSampler`.
+occlusion and the loader's sharding over processes.
 """
 
 from __future__ import annotations
@@ -229,9 +229,58 @@ def collate(items: list[dict[str, Any]]) -> dict[str, Any]:
     return batch
 
 
+class ResumableSampler:
+    """Shuffled index order that a checkpoint can resume mid-epoch: the
+    epoch's permutation (seeded by seed + epoch) and a cursor (reference
+    pocolib/utils/dataloader.py:7-64). As in the JAX package, the trainer
+    resumes at epoch boundaries (its loader is seeded by the epoch) and
+    does not use it; it is the utility for runs restarted by hand."""
+
+    def __init__(self, n: int, shuffle: bool = True, seed: int = 0):
+        self.n = n
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.cursor = 0
+        self._perm = self._make_perm()
+
+    def _make_perm(self) -> np.ndarray:
+        order = np.arange(self.n)
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        return order
+
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch, "cursor": self.cursor, "seed": self.seed,
+                "perm": self._perm.tolist()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.epoch = state["epoch"]
+        self.cursor = state["cursor"]
+        self.seed = state["seed"]
+        self._perm = np.asarray(state["perm"])
+
+    def next_epoch(self) -> None:
+        self.epoch += 1
+        self.cursor = 0
+        self._perm = self._make_perm()
+
+    def take(self, k: int) -> np.ndarray:
+        idx = self._perm[self.cursor:self.cursor + k]
+        self.cursor += len(idx)
+        return idx
+
+    @property
+    def remaining(self) -> int:
+        return self.n - self.cursor
+
+
 class DataLoader:
     """Batches of one process, assembled on a background thread that
-    keeps up to `prefetch` batches ready."""
+    keeps up to `prefetch` batches ready. The order is shuffled by a
+    generator seeded with `seed` (the trainer passes the epoch, so a
+    resumed epoch repeats its order); a dataset with `get_batch` reads a
+    whole batch at once."""
 
     def __init__(
         self,
@@ -276,7 +325,10 @@ class DataLoader:
             try:
                 for b in range(n_batches):
                     idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
-                    if not put(collate([self.dataset[int(i)] for i in idxs])):
+                    get_batch = getattr(self.dataset, "get_batch", None)
+                    batch = (get_batch(idxs) if get_batch is not None
+                             else collate([self.dataset[int(i)] for i in idxs]))
+                    if not put(batch):
                         return
             except Exception as e:  # handed to the consumer, raised there
                 put(e)

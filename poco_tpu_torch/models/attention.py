@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .backbones.common import BN_MOMENTUM, batch_norm, conv
+from .backbones.common import BN_MOMENTUM, BatchNorm1d, batch_norm, conv
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -84,7 +84,7 @@ class NonLocalBlock(nn.Module):
         nn.init.zeros_(self.w.bias)
         self.w_bn = None
         if use_bn:
-            self.w_bn = nn.BatchNorm1d(in_channels, eps=1e-5, momentum=BN_MOMENTUM)
+            self.w_bn = BatchNorm1d(in_channels, eps=1e-5, momentum=BN_MOMENTUM)
             nn.init.zeros_(self.w_bn.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

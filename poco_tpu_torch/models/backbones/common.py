@@ -6,10 +6,14 @@ compute the same math on the same logical parameter shapes, which these
 plain modules hold. Attribute names follow the reference torch modules
 (pocolib/models/backbone/{hrnet,hrnet_cls,resnet}.py, torchvision), so a
 reference state_dict loads as it is. Symmetric `k // 2` padding, BN eps
-1e-5 and momentum 0.1.
+1e-5 and momentum 0.1; in training, BN's running variance takes the
+biased batch variance, as flax's BatchNorm does (`FlaxVarianceBN`, applied
+by `flax_variance_update` around a model's forward).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +35,75 @@ def conv(
     return nn.Conv2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
 
 
+class FlaxVarianceBN:
+    """Mixin for torch's batch norms whose running variance moves toward
+    the biased batch variance (sum of squares over n), as flax's
+    `nn.BatchNorm` updates `batch_stats.var`, instead of torch's unbiased
+    one (over n - 1). The normalization itself is the same in both.
+
+    torch's own update runs in the layer; `flax_variance_update` corrects
+    it for all of a model's layers at once around the model's forward. The
+    layer only records the n it normalized over while that is active.
+    """
+
+    batch_counts: list[int] | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.batch_counts is not None:
+            self.batch_counts.append(x.numel() // x.shape[1])
+        return super().forward(x)
+
+
+@contextlib.contextmanager
+def flax_variance_update(model: nn.Module):
+    """Around a forward of `model`: the running variances of its
+    `FlaxVarianceBN` layers in training take flax's update instead of
+    torch's. With keep = 1 - momentum, torch stores new = keep * old +
+    momentum * var * n / (n - 1), and new - (new - keep * old) / n = keep *
+    old + momentum * var. The correction is four multi-tensor kernels over
+    all the layers (a copy of each (C,) running variance before, three
+    in-place passes after), not a pass over the activations. A layer with a
+    momentum of 1 (no moving average: the statistics replaced by one
+    batch's, as `utils.weights.calibrate_batchnorm` sets a random model's)
+    or None keeps torch's value, and so does a layer the forward skips."""
+    layers = [m for m in model.modules() if isinstance(m, FlaxVarianceBN) and m.training
+              and m.track_running_stats and m.momentum not in (None, 1.0)]
+    if not layers:
+        yield
+        return
+    # through .data: autograd saved running_var with the batch-norm call
+    # (its backward does not read it) and would refuse a version bump
+    running = [m.running_var.data for m in layers]
+    kept = torch._foreach_mul(running, [1.0 - m.momentum for m in layers])
+    for m in layers:
+        m.batch_counts = []
+    try:
+        yield
+    finally:
+        counts = [m.batch_counts for m in layers]
+        for m in layers:
+            m.batch_counts = None
+    ran = [i for i, c in enumerate(counts) if c]
+    if any(len(counts[i]) > 1 for i in ran):
+        raise RuntimeError("flax_variance_update: a batch norm ran twice in one forward")
+    if not ran:
+        return
+    new = [running[i] for i in ran]
+    diff = torch._foreach_sub(new, [kept[i] for i in ran])
+    torch._foreach_div_(diff, [float(counts[i][0]) for i in ran])
+    torch._foreach_sub_(new, diff)
+
+
+class BatchNorm2d(FlaxVarianceBN, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(FlaxVarianceBN, nn.BatchNorm1d):
+    pass
+
+
 def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=BN_MOMENTUM)
+    return BatchNorm2d(channels, eps=1e-5, momentum=BN_MOMENTUM)
 
 
 class BasicBlock(nn.Module):

@@ -13,6 +13,7 @@ from torch import nn
 
 from ...ops.rotation import rot6d_to_rotmat
 from ...smpl.mean_params import load_mean_params
+from ..layers import Dropout
 
 
 class HmrHead(nn.Module):
@@ -29,9 +30,9 @@ class HmrHead(nn.Module):
         self.n_iter = n_iter
         npose = num_joints * 6
         self.fc1 = nn.Linear(num_input_features + npose + 10 + 3, 1024)
-        self.drop1 = nn.Dropout(0.5)
+        self.drop1 = Dropout(0.5)
         self.fc2 = nn.Linear(1024, 1024)
-        self.drop2 = nn.Dropout(0.5)
+        self.drop2 = Dropout(0.5)
         self.decpose = nn.Linear(1024, npose)
         self.decshape = nn.Linear(1024, 10)
         self.deccam = nn.Linear(1024, 3)

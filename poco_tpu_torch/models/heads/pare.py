@@ -35,6 +35,7 @@ from ...smpl.mean_params import load_mean_params
 from ..attention import CoAttention, NonLocalBlock
 from ..backbones.common import batch_norm, conv
 from ..layers import (
+    Dropout,
     PerPositionConv1x1,
     get_heatmap_preds,
     grid_sample_bilinear,
@@ -166,8 +167,8 @@ class PareHead(nn.Module):
             self.deccam = nn.Linear(1024, num_camera_params)
             for dec in (self.decpose, self.decshape, self.deccam):
                 nn.init.xavier_uniform_(dec.weight, gain=0.01)
-            self.drop1 = nn.Dropout(0.5)
-            self.drop2 = nn.Dropout(0.5)
+            self.drop1 = Dropout(0.5)
+            self.drop2 = Dropout(0.5)
             return
         pose_in, shape_in = c_branch, smpl_flat
         if self.iterative:

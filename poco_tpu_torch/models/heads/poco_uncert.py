@@ -23,6 +23,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..layers import Dropout
+
 UNCERT_INP_TYPES = ("feat", "feat-pose", "feat-pose-net")
 
 
@@ -71,7 +73,7 @@ class PocoUncertHead(nn.Module):
         for i in range(len(widths) - 1):
             setattr(self, f"uncert_fc{i + 1}", nn.Linear(widths[i], widths[i + 1]))
         self.num_fc = len(widths) - 1
-        self.dropout = nn.Dropout(0.5)
+        self.dropout = Dropout(0.5)
         self.use_dropout = use_dropout
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,29 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def dropout_keep_mask(x: torch.Tensor, keep: float) -> torch.Tensor:
+    """The keep mask of `Dropout`: True with probability `keep`, drawn
+    from torch's generator for `x`'s device. A module-level function so
+    that a test can feed every dropout layer one mask (all-keep, for
+    parity with the JAX package, whose random bits torch cannot repeat)."""
+    return torch.rand(x.shape, device=x.device) < keep
+
+
+class Dropout(nn.Module):
+    """Inverted dropout as flax computes it: in training, x / keep where
+    the mask keeps, 0 elsewhere; the identity in eval mode."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(dropout_keep_mask(x, keep), x / keep, torch.zeros_like(x))
+
+
 class PerPositionConv1x1(nn.Module):
     """Unshared-weight 1x1 conv over a fixed (H, W) grid: the reference
     `LocallyConnected2d` with kernel_size 1, used as per-joint MLPs over

@@ -2,7 +2,7 @@
 
 Port of `poco_tpu.models.poco` (reference pocolib/models/poco.py:12-129
 and hmr.py, the plain-HMR baseline of METHOD=spin): every backbone and
-head family of the JAX registry except the two toy `tiny` backbones.
+head family of the JAX registry.
 Submodules carry the reference names `backbone`, `head`, `uncert_head`
 and `flow_head`, so their state_dict keys are the reference checkpoint's.
 
@@ -29,7 +29,9 @@ from ..device import resolve_device
 from ..smpl.lbs import SmplParams
 from ..smpl.model import smpl_head, smplcam_head
 from .backbones import resnet
+from .backbones.common import flax_variance_update
 from .backbones.hrnet import hrnet_w32, hrnet_w48, hrnet_w48_cls, hrnet_w64
+from .backbones.tiny import tiny_cls, tiny_pose
 from .heads.cliff import CliffHead
 from .heads.flow import FlowHead
 from .heads.hmr import HmrHead
@@ -50,6 +52,8 @@ BACKBONES = {
     "hrnet_w48": hrnet_w48,
     "hrnet_w48_cls": hrnet_w48_cls,
     "hrnet_w64": hrnet_w64,
+    "tiny": tiny_cls,
+    "tiny_pose": tiny_pose,
 }
 
 
@@ -110,8 +114,8 @@ class POCO(nn.Module):
         super().__init__()
         if cfg.backbone_name not in BACKBONES:
             raise NotImplementedError(
-                f"backbone {cfg.backbone_name!r} is not ported (ported: "
-                f"{sorted(BACKBONES)}); the tiny backbones come with training"
+                f"backbone {cfg.backbone_name!r} is not in the registry "
+                f"({sorted(BACKBONES)})"
             )
         if cfg.head_name not in ("cliff", "pare", "hmr"):
             raise NotImplementedError(
@@ -151,32 +155,44 @@ class POCO(nn.Module):
             )
 
     def forward(self, batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict[str, Any]:
+        if not self.training:
+            return self._forward(batch, smpl)
+        # in training, BN's running variances follow flax's biased update
+        with flax_variance_update(self):
+            return self._forward(batch, smpl)
+
+    def _forward(self, batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict[str, Any]:
         cfg = self.cfg
         features = self.backbone(batch["img"].permute(0, 3, 1, 2))
-        if cfg.head_name == "cliff":
-            head_out = self.head(features, batch["bbox_info"])
-            s = smplcam_head(
-                smpl,
-                rotmat=head_out["pred_pose"],
-                shape=head_out["pred_shape"],
-                cam=head_out["pred_cam"],
-                focal_length=batch["focal_length"],
-                bbox_scale=batch["scale"],
-                bbox_center=batch["center"],
-                img_h=batch["orig_shape"][:, 0],
-                img_w=batch["orig_shape"][:, 1],
-                img_res=cfg.img_res,
+        head_out = (self.head(features, batch["bbox_info"]) if cfg.head_name == "cliff"
+                    else self.head(features))
+        # SMPL and the cameras stay fp32 under a bf16 autocast (PRECISION: 16)
+        with torch.autocast(features.device.type, enabled=False):
+            rotmat, shape, cam = (
+                _full_precision(head_out[k]) for k in ("pred_pose", "pred_shape", "pred_cam")
             )
-        else:
-            head_out = self.head(features)
-            s = smpl_head(
-                smpl,
-                rotmat=head_out["pred_pose"],
-                shape=head_out["pred_shape"],
-                cam=head_out["pred_cam"],
-                img_res=cfg.img_res,
-                normalize_joints2d=True,
-            )
+            if cfg.head_name == "cliff":
+                s = smplcam_head(
+                    smpl,
+                    rotmat=rotmat,
+                    shape=shape,
+                    cam=cam,
+                    focal_length=batch["focal_length"],
+                    bbox_scale=batch["scale"],
+                    bbox_center=batch["center"],
+                    img_h=batch["orig_shape"][:, 0],
+                    img_w=batch["orig_shape"][:, 1],
+                    img_res=cfg.img_res,
+                )
+            else:
+                s = smpl_head(
+                    smpl,
+                    rotmat=rotmat,
+                    shape=shape,
+                    cam=cam,
+                    img_res=cfg.img_res,
+                    normalize_joints2d=True,
+                )
         output = dict(head_out)
         output.update(
             smpl_vertices=s.vertices,
@@ -205,6 +221,11 @@ class POCO(nn.Module):
                 output.get("var_pose"),
             )
         return output
+
+
+def _full_precision(x: torch.Tensor) -> torch.Tensor:
+    """fp32 for a bf16/fp16 tensor of an autocast region; fp32 and fp64 as they are."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
 
 
 def make_dummy_batch(

@@ -2,8 +2,11 @@
 reference's names (`backbone.`, `head.`, `uncert_head.`, `flow_head.`),
 plain, wrapped in `model` / `state_dict`, or with Lightning's `model.`
 prefix (port of the torch branch of
-`poco_tpu.utils.checkpoint_convert`). Orbax directories, the JAX
-package's own checkpoints, are refused: reading them needs orbax.
+`poco_tpu.utils.checkpoint_convert`), and the trainer's own payload
+(`save_checkpoint` / `load_checkpoint`): the model's state_dict under
+`model`, the optimizer's state, the step and the LR scale. Orbax
+directories, the JAX package's own checkpoints, are refused: reading them
+needs orbax.
 """
 
 from __future__ import annotations
@@ -103,3 +106,71 @@ def load_checkpoint_into(model: nn.Module, path: str, inf_model: str = "best") -
         )
     print(f"loaded {len(state) - len(result.unexpected_keys)} tensors from {path}")
     return path
+
+
+def checkpoint_file(path: str) -> str:
+    """`<path>.pt` for a trainer checkpoint named without its suffix."""
+    return path if path.endswith((".pt", ".ckpt")) else f"{path}.pt"
+
+
+def save_checkpoint(path: str, model: nn.Module, optimizer=None, step: int = 0,
+                    lr_scale: float = 1.0) -> str:
+    """Write the training payload to `<path>.pt` (through a temporary file,
+    so a run killed while saving leaves the previous file whole); returns
+    the file written."""
+    path = checkpoint_file(path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = {
+        "model": model.state_dict(),
+        "optimizer": optimizer.state_dict() if optimizer is not None else None,
+        "step": int(step),
+        "lr_scale": float(lr_scale),
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, model: nn.Module, optimizer=None) -> dict:
+    """Restore a `save_checkpoint` payload. The model's keys must match
+    exactly: a missing or extra key raises, so a resumed run never goes on
+    from partly fresh weights. The optimizer state restores leniently (what
+    does not fit keeps its fresh state, as the JAX trainer does). Returns
+    `step`, `lr_scale` and `optimizer_kept_fresh` (what was not restored)."""
+    path = checkpoint_file(path)
+    if _is_orbax(path.removesuffix(".pt")):
+        _refuse_orbax(path.removesuffix(".pt"))
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(payload, dict) or "model" not in payload:
+        raise ValueError(f"{path} is not a training checkpoint (no 'model' entry)")
+    ours = set(model.state_dict())
+    theirs = set(payload["model"])
+    if ours != theirs:
+        raise ValueError(
+            f"checkpoint {path!r} does not match the model: missing "
+            f"{sorted(ours - theirs)[:10]} extra {sorted(theirs - ours)[:10]} "
+            f"(counts {len(ours - theirs)}/{len(theirs - ours)})"
+        )
+    model.load_state_dict(payload["model"], strict=True)
+    kept = []
+    if optimizer is not None:
+        saved = payload.get("optimizer")
+        kept = ["optimizer state missing"] if saved is None else optimizer.load_state_dict(saved)
+    return {
+        "step": int(payload.get("step", 0)),
+        "lr_scale": float(payload.get("lr_scale", 1.0)),
+        "optimizer_kept_fresh": kept,
+    }
+
+
+def load_pretrained(model: nn.Module, path: str) -> dict:
+    """Warm start from a reference `.pt` (TRAINING.PRETRAINED): every
+    tensor whose name and shape the model has is loaded; the rest are
+    skipped and counted. Orbax directories raise."""
+    state = load_torch_checkpoint(path)
+    ours = model.state_dict()
+    fits = {k: v for k, v in state.items() if k in ours and tuple(v.shape) == tuple(ours[k].shape)}
+    model.load_state_dict(fits, strict=False)
+    return {"loaded": len(fits), "skipped": len(state) - len(fits),
+            "not_in_checkpoint": len(ours) - len(fits)}

@@ -12,11 +12,17 @@ at the edges of the 16-row warp slices and the 128-vertex block tile,
 at odd sample counts (a pair with one sample), and at any 4-byte
 alignment of the tensors. The main paths (POCO-CLIFF, POCO-PARE, HMR)
 launch `skinning` once per SMPL forward and never `skinning_simt`; the
-flow head's forward runs on the card; a forward that would need the
-kernel's missing backward raises. The eval step runs on the card as on
-the CPU (per-sample metrics within 1e-4 m), launches `skinning` 5 times
-a batch (7 with flip-TTA), its Procrustes matches float64 numpy, and
-flip-TTA of a flip-equivariant stub is exact.
+flow head's forward runs on the card. The backward kernel
+(`skinning_backward`) is held to its plain version at every batch the
+paths launch it with, within 1e-5 x max |plain| + 1e-7 for both
+gradients, gives bit-identical gradients on a second run (no atomics),
+and carries autograd through `skinning`; skinning weights that need a
+gradient raise (the kernel gives them none). The eval step runs on the
+card as on the CPU (per-sample metrics within 1e-4 m), launches
+`skinning` 5 times a batch (7 with flip-TTA), its Procrustes matches
+float64 numpy, and flip-TTA of a flip-equivariant stub is exact. One
+full-width POCO-CLIFF train step is finite and launches the forward
+kernel twice and the backward kernel once.
 """
 
 import numpy as np
@@ -32,7 +38,13 @@ from poco_tpu_torch.models.backbones.common import Bottleneck
 from poco_tpu_torch.models.backbones.hrnet import HRNet
 from poco_tpu_torch.models.backbones.resnet import ResNet
 from poco_tpu_torch.ops.rotation import axis_angle_to_rotmat
-from poco_tpu_torch.ops.skinning import skinning, skinning_reference, skinning_simt
+from poco_tpu_torch.ops.skinning import (
+    skinning,
+    skinning_backward,
+    skinning_backward_reference,
+    skinning_reference,
+    skinning_simt,
+)
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.smpl.lbs import smpl_forward
 from poco_tpu_torch.utils.weights import calibrate_batchnorm, randomize_batchnorm
@@ -113,10 +125,13 @@ def test_skinning_refuses_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_kernels_refuse_inputs_that_need_a_gradient(cuda, kernel):
-    """No backward: a result autograd cannot follow is an error, not a
-    silently missing gradient. Without autograd the same call runs."""
+    """A gradient the kernels cannot give is an error, not a silently
+    missing gradient: `skinning_simt` has no backward, so any input that
+    needs one raises; `skinning` raises for skinning weights that need one
+    (its backward covers the transforms and v_posed). Without autograd the
+    same call runs."""
     w, tfms, vp = _inputs(2, 64, seed=3, device=cuda)
-    vp.requires_grad_(True)
+    (w if kernel == "skinning" else vp).requires_grad_(True)
     before = KERNELS[kernel].launches
     with pytest.raises(RuntimeError, match="no backward"):
         KERNELS[kernel](w, tfms, vp)
@@ -126,8 +141,65 @@ def test_kernels_refuse_inputs_that_need_a_gradient(cuda, kernel):
     torch.cuda.synchronize()
     assert KERNELS[kernel].launches == before + 1
     torch.testing.assert_close(
-        out, skinning_reference(w, tfms, vp.detach()), rtol=0, atol=ATOL
+        out, skinning_reference(w.detach(), tfms, vp.detach()), rtol=0, atol=ATOL
     )
+
+
+def _backward_close(got, ref):
+    """Within 1e-5 x max |plain| + 1e-7 (fp32 sums over V in another order)."""
+    bar = 1e-5 * float(ref.abs().max()) + 1e-7
+    err = float((got - ref).abs().max())
+    assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize(
+    "batch,num_verts",
+    [(128, 6890), (64, 6890), (16, 6890), (8, 6890), (2, 6890), (1, 6890), (3, 1001),
+     (2, 1), (2, 255), (2, 256), (2, 257)],
+)
+def test_backward_kernel_matches_plain(cuda, batch, num_verts):
+    w, tfms, vp = _inputs(batch, num_verts, seed=batch + 3 * num_verts, device=cuda)
+    g = torch.randn(batch, num_verts, 3, device=cuda)
+    before = skinning_backward.launches
+    gv, ga = skinning_backward(w, tfms, vp, g)
+    torch.cuda.synchronize()
+    assert skinning_backward.launches == before + 1
+    rv, ra = skinning_backward_reference(w, tfms, vp, g)
+    _backward_close(gv, rv)
+    _backward_close(ga, ra)
+    assert bool((ga[:, :, 3] == 0).all())
+    gv2, ga2 = skinning_backward(w, tfms, vp, g)
+    assert torch.equal(gv, gv2) and torch.equal(ga, ga2)  # no atomics: bit-identical
+
+
+def test_skinning_autograd_on_the_card_runs_the_backward_kernel(cuda):
+    w, tfms, vp = _inputs(4, 6890, seed=11, device=cuda)
+    tfms.requires_grad_(True)
+    vp.requires_grad_(True)
+    g = torch.randn(4, 6890, 3, device=cuda)
+    fwd, bwd = skinning.launches, skinning_backward.launches
+    out = skinning(w, tfms, vp)
+    ga, gv = torch.autograd.grad(out, (tfms, vp), g)
+    torch.cuda.synchronize()
+    assert (skinning.launches, skinning_backward.launches) == (fwd + 1, bwd + 1)
+    ra, rv = torch.autograd.grad(
+        skinning_reference(w, tfms, vp), (tfms, vp), g
+    )
+    _backward_close(ga, ra)
+    _backward_close(gv, rv)
+
+
+def test_backward_refuses_what_the_kernel_does_not_take(cuda):
+    w, tfms, vp = _inputs(2, 64, seed=0, device=cuda)
+    g = torch.randn(2, 64, 3, device=cuda)
+    with pytest.raises(TypeError):
+        skinning_backward(w, tfms, vp, g.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        skinning_backward(w, tfms, vp, g.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        skinning_backward(w, tfms, vp, g.cpu())
+    with pytest.raises(ValueError, match="expected"):
+        skinning_backward(w, tfms, vp, g[:, :32].contiguous())
 
 
 def test_smpl_forward_launches_the_kernel_once(cuda):
@@ -218,16 +290,23 @@ def test_flow_forward_on_the_card_gives_finite_log_phi(cuda, monkeypatch, kind):
 
 
 def test_forward_with_autograd_raises_through_the_kernel_guard(cuda, monkeypatch):
-    """Parameters that need a gradient and autograd on: the skinning
-    kernel refuses, rather than return vertices without a grad_fn."""
+    """Parameters that need a gradient and autograd on: the vertices carry
+    the backward kernel (one launch on `backward()`); SMPL skinning
+    weights that need a gradient raise at the kernel's guard instead."""
     model = _narrow(monkeypatch, "pare", cuda)
     smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
     batch = port_poco.make_dummy_batch(model.cfg, 2, include_gt=False, device=cuda)
     assert all(p.requires_grad for p in model.parameters())
-    before = skinning.launches
+    fwd, bwd = skinning.launches, skinning_backward.launches
+    out = model(batch, smpl)
+    out["smpl_vertices"].square().sum().backward()
+    torch.cuda.synchronize()
+    assert (skinning.launches, skinning_backward.launches) == (fwd + 1, bwd + 1)
+    assert any(p.grad is not None and bool(p.grad.any()) for p in model.head.parameters())
+    smpl.lbs_weights.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         model(batch, smpl)
-    assert skinning.launches == before
+    assert skinning.launches == fwd + 1
 
 
 def _eval_batch(seed, n, device):
@@ -306,3 +385,33 @@ def test_flip_tta_of_an_equivariant_stub_on_the_card_is_exact(cuda):
     m = make_gendered_eval_step(stub, flip_test=True)(batch, smpl, smpl, smpl)
     torch.testing.assert_close(m["mpjpe"].cpu(), torch.zeros(4), rtol=0, atol=1e-4)
     torch.testing.assert_close(m["v2v"].cpu(), torch.zeros(4), rtol=0, atol=1e-4)
+
+
+def test_full_width_train_step_on_the_card(cuda):
+    """One POCO-CLIFF train step at full width (HRNet-W48-cls, V=6890) at
+    batch 4: finite loss terms and gradient norm, 2 forward and 1 backward
+    skinning launches, and the head's weights moved."""
+    from poco_tpu_torch.losses.losses import LossConfig
+    from poco_tpu_torch.train.state import ModuleAdam
+    from poco_tpu_torch.train.step import make_train_step
+
+    torch.manual_seed(0)
+    model = port_poco.build_poco_cliff(device=cuda)
+    smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
+    batch = _eval_batch(5, 4, cuda)
+    batch.update(
+        has_smpl=torch.ones(4, device=cuda), has_pose_3d=torch.ones(4, device=cuda),
+        keypoints_fullimg=torch.rand(4, 49, 3, device=cuda) * 400,
+        gt_pose_cond_mask=torch.tensor([True, False, False, False], device=cuda),
+    )
+    optimizer = ModuleAdam(model, lr=1e-4)
+    step = make_train_step(model, optimizer, LossConfig(keypoint2d_noncrop=True))
+    before = model.head.fc1.weight.detach().clone()
+    fwd, bwd = skinning.launches, skinning_backward.launches
+    metrics = step(batch, smpl)
+    torch.cuda.synchronize()
+    assert (skinning.launches - fwd, skinning_backward.launches - bwd) == (2, 1)
+    for key, value in metrics.items():
+        if not key.startswith("_"):
+            assert bool(torch.isfinite(value).all()), key
+    assert not torch.equal(before, model.head.fc1.weight)

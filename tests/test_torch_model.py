@@ -347,9 +347,11 @@ def test_state_dict_from_jax_leaves_flow_head_and_refuses_strangers():
 
 
 def test_port_builds_every_backbone_of_the_jax_registry_but_tiny():
+    """Every backbone of the JAX registry, the tiny ones included since
+    they came with training, at the JAX package's output width."""
     from poco_tpu.models.backbones.resnet import BACKBONE_INFO
 
-    assert set(port_poco.BACKBONES) == set(jax_poco.BACKBONES) - {"tiny", "tiny_pose"}
+    assert set(port_poco.BACKBONES) == set(jax_poco.BACKBONES)
     for name, factory in port_poco.BACKBONES.items():
         with torch.device("meta"):
             net = factory()
@@ -357,10 +359,8 @@ def test_port_builds_every_backbone_of_the_jax_registry_but_tiny():
 
 
 def test_model_refuses_unported_paths():
-    with pytest.raises(NotImplementedError, match="tiny"):
-        port_poco.POCO(port_poco.PocoConfig(backbone="tiny-cliff"))
-    with pytest.raises(NotImplementedError, match="tiny"):
-        port_poco.POCO(port_poco.PocoConfig(backbone="tiny_pose-pare"))
+    with pytest.raises(NotImplementedError, match="not in the registry"):
+        port_poco.POCO(port_poco.PocoConfig(backbone="tinier-cliff"))
     with pytest.raises(NotImplementedError, match="head 'spin'"):
         port_poco.POCO(port_poco.PocoConfig(backbone="resnet18-spin"))
 
@@ -375,6 +375,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         port_poco.build_poco_cliff()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic_smpl_model(num_verts=32)
+    from poco_tpu_torch.cli import train as train_cli
+    from poco_tpu_torch.train.trainer import Trainer
+
+    hparams = update_hparams(str(REPO / "configs" / "tiny_smoke.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(hparams, synthetic_smpl_model(num_verts=32, device="cpu"), lambda e: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--cfg", str(REPO / "configs" / "tiny_smoke.yaml")])
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "poco_tpu"}

@@ -11,8 +11,15 @@ the 3xTF32 blend (W and the transforms split into a TF32 part and a TF32
 residual, three products summed in fp32) and the register epilogue
 ((T0 x + T1 y) + (T2 z + T3) per output row), held to the same
 references at the same atol; and one TF32 product is shown to miss it.
+
+The backward's plain version (`skinning_backward_reference`, which the
+backward kernel is held to on the card) is compared with torch autograd
+and with jax.vjp of the JAX einsum path, and the SMPL forward's
+gradients with respect to betas and rotations with jax.grad, at atol
+1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +28,14 @@ import torch
 from poco_tpu.ops.pallas_lbs import skinning_pallas
 from poco_tpu.ops.rotation import axis_angle_to_rotmat
 from poco_tpu_torch.ops import kernels
-from poco_tpu_torch.ops.skinning import skinning, skinning_reference, skinning_simt
+from poco_tpu_torch.ops.skinning import (
+    _SkinningFunction,
+    skinning,
+    skinning_backward,
+    skinning_backward_reference,
+    skinning_reference,
+    skinning_simt,
+)
 
 ATOL = 1e-4
 
@@ -111,11 +125,17 @@ def test_wrapper_on_cpu_keeps_autograd():
 
 @pytest.mark.parametrize("kernel", [skinning, skinning_simt])
 def test_wrapper_refuses_a_gradient_off_the_cpu(kernel):
-    """The CUDA kernels have no backward: off the CPU, inputs that need a
-    gradient raise (a meta tensor stands in for a CUDA one here) instead of
-    giving an output that autograd cannot follow."""
+    """Off the CPU (a meta tensor stands in for a CUDA one here), an input
+    that needs a gradient the kernels cannot give raises instead of
+    giving an output that autograd cannot follow: for `skinning_simt`,
+    which has no backward, any input; for `skinning`, the skinning
+    weights (its backward gives the transforms and v_posed only)."""
     w, tfms, vp = (torch.from_numpy(a) for a in _inputs(2, 50, seed=5))
-    vp = vp.to("meta").requires_grad_(True)
+    w, tfms, vp = w.to("meta"), tfms.to("meta"), vp.to("meta")
+    if kernel is skinning:
+        w.requires_grad_(True)
+    else:
+        vp.requires_grad_(True)
     before = kernel.launches
     with pytest.raises(RuntimeError, match="no backward"):
         kernel(w, tfms, vp)
@@ -218,3 +238,88 @@ def test_tf32_rounding_is_nearest_ties_away():
     np.testing.assert_array_equal(
         _tf32_round(x), np.asarray([1.0, 1.0 + ulp, -(1.0 + ulp), 1.0 + ulp], np.float32)
     )
+
+
+# --------------------------------------------------------------------------
+# the backward: plain version against autograd and jax.vjp; lbs gradients
+# --------------------------------------------------------------------------
+
+GRAD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("batch,num_verts", [(2, 6890), (3, 1001)])
+def test_backward_reference_matches_autograd_and_jax_vjp(batch, num_verts):
+    """`skinning_backward_reference` (the plain version the backward kernel
+    is held to on the card) against torch autograd through
+    `skinning_reference` and against jax.vjp of the JAX einsum path, at
+    atol 1e-5: fp32 sums over V in another order. The output gradient is
+    0.1 x N(0, 1) a coordinate, so the transforms' gradient, a sum over
+    the V vertices, is O(1) (its largest entry about 1.5 at V=6890)."""
+    w, tfms, vp = _inputs(batch, num_verts, seed=num_verts + 21)
+    g = 0.1 * np.random.RandomState(num_verts).randn(batch, num_verts, 3).astype(np.float32)
+    grad_vp, grad_tfms = skinning_backward_reference(*map(torch.from_numpy, (w, tfms, vp, g)))
+    assert bool((grad_tfms[:, :, 3] == 0).all())
+
+    t_tfms, t_vp = torch.from_numpy(tfms).requires_grad_(), torch.from_numpy(vp).requires_grad_()
+    auto_tfms, auto_vp = torch.autograd.grad(
+        skinning_reference(torch.from_numpy(w), t_tfms, t_vp), (t_tfms, t_vp), torch.from_numpy(g)
+    )
+    np.testing.assert_allclose(grad_vp.numpy(), auto_vp.numpy(), atol=GRAD_ATOL, rtol=0)
+    np.testing.assert_allclose(grad_tfms.numpy(), auto_tfms.numpy(), atol=GRAD_ATOL, rtol=0)
+
+    _, vjp = jax.vjp(
+        lambda a, v: _jax_einsum_skinning(jnp.asarray(w), a, v), jnp.asarray(tfms), jnp.asarray(vp)
+    )
+    jax_tfms, jax_vp = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(grad_vp.numpy(), np.asarray(jax_vp), atol=GRAD_ATOL, rtol=0)
+    np.testing.assert_allclose(grad_tfms.numpy(), np.asarray(jax_tfms), atol=GRAD_ATOL, rtol=0)
+
+
+def test_wrapper_on_cpu_takes_the_plain_backward_without_counting():
+    args = [torch.from_numpy(a) for a in _inputs(2, 50, seed=12)]
+    g = torch.randn(2, 50, 3)
+    before = skinning_backward.launches
+    out = skinning_backward(*args, g)
+    assert skinning_backward.launches == before
+    for a, b in zip(out, skinning_backward_reference(*args, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("through", ["plain", "function"])
+def test_lbs_gradients_match_jax_grad(monkeypatch, through):
+    """Gradients of a loss on the SMPL vertices and joints with respect to
+    betas and the pose rotations, the port against jax.grad of the JAX
+    package's einsum path, at V=6890 and atol 1e-5. `function` routes the
+    port's skinning through the autograd Function that the card uses
+    (forward and backward wrappers, here on their plain versions)."""
+    from poco_tpu.smpl.assets import synthetic_smpl_model as jax_synthetic_smpl
+    from poco_tpu.smpl.lbs import smpl_forward as jax_smpl_forward
+    from poco_tpu_torch.smpl import lbs as lbs_module
+    from poco_tpu_torch.smpl.assets import synthetic_smpl_model
+    from poco_tpu_torch.smpl.lbs import smpl_forward
+
+    if through == "function":
+        monkeypatch.setattr(lbs_module, "skinning", _SkinningFunction.apply)
+    rng = np.random.RandomState(3)
+    betas = rng.randn(2, 10).astype(np.float32)
+    aa = (0.4 * rng.randn(2 * 24, 3)).astype(np.float32)
+    rot = np.asarray(axis_angle_to_rotmat(jnp.asarray(aa))).reshape(2, 24, 3, 3)
+    r_v = rng.randn(2, 6890, 3).astype(np.float32) / 6890
+    r_j = rng.randn(2, 54, 3).astype(np.float32)
+
+    jax_smpl = jax_synthetic_smpl(num_verts=6890)
+
+    def jax_loss(b, r):
+        out = jax_smpl_forward(jax_smpl, b, r)
+        return (out.vertices * r_v).sum() + (out.joints * r_j).sum()
+
+    jb, jr = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(betas), jnp.asarray(rot))
+
+    smpl = synthetic_smpl_model(num_verts=6890, device="cpu")
+    tb = torch.from_numpy(betas).requires_grad_()
+    tr = torch.from_numpy(rot.copy()).requires_grad_()
+    out = smpl_forward(smpl, tb, tr)
+    loss = (out.vertices * torch.from_numpy(r_v)).sum() + (out.joints * torch.from_numpy(r_j)).sum()
+    gb, gr = torch.autograd.grad(loss, (tb, tr))
+    np.testing.assert_allclose(gb.numpy(), np.asarray(jb), atol=GRAD_ATOL, rtol=0)
+    np.testing.assert_allclose(gr.numpy(), np.asarray(jr), atol=GRAD_ATOL, rtol=0)
