@@ -13,9 +13,10 @@ Phases, each of which raises (exit code 1) on failure:
      and its fp32-FMA yardstick (`skinning_simt`) against the plain torch
      version on the card, at every batch the main paths launch it with
      (B = 1, 2, 8, 16, 64, 128 at V=6890; the launch layout depends on B)
-     and a ragged shape; the backward kernel (`skinning_backward`) against
-     its plain version at the same shapes (both gradients within 1e-5 x
-     max |plain| + 1e-7);
+     and a ragged shape; the backward kernel (`skinning_backward`, 3xTF32
+     tensor cores) and its fp32-FMA yardstick (`skinning_backward_simt`)
+     against their plain version at the same shapes (both gradients within
+     1e-5 x max |plain| + 1e-7);
   4. main path at full width: POCO-CLIFF (HRNet-W48-cls, configs/
      poco_cliff.yaml) with seeded random weights and a V=6890 synthetic
      SMPL answers `detect_forward` requests of 1, 8 and 128 boxes on a
@@ -63,11 +64,12 @@ Phases, each of which raises (exit code 1) on failure:
      in turns, from CUDA events around CUDA-graph replays, with the
      inputs hot in L2 and cold (rotating over sets larger than L2),
      beside the card's bound for the same work; 7b. the backward kernel
-     the same way at B = 64 and 128, beside autograd through the plain
-     forward.
-The line before the last is the kernels' JSON record (`skinning`,
-`skinning_simt`, `skinning_backward`, launches summed over phases
-4-4f); the last line is
+     and its yardstick the same way at B = 64 and 128, in turns, beside
+     autograd through the plain forward.
+The yardsticks never launch on the main paths (checked in 4-4f). The
+line before the last is the kernels' JSON record (`skinning`,
+`skinning_simt`, `skinning_backward`, `skinning_backward_simt`,
+launches summed over phases 4-4f); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -84,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -115,6 +118,7 @@ from poco_tpu_torch.ops.skinning import (
     skinning,
     skinning_backward,
     skinning_backward_reference,
+    skinning_backward_simt,
     skinning_reference,
     skinning_simt,
 )
@@ -325,13 +329,28 @@ SKIN_SHAPES = ((128, 6890), (64, 6890), (16, 6890), (8, 6890), (2, 6890), (1, 68
 
 
 KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
+BACKWARD_UNDER_TEST = {"backward": skinning_backward, "backward_simt": skinning_backward_simt}
+YARDSTICKS = (skinning_simt, skinning_backward_simt)  # never launched on the main paths
+COUNTED = (skinning, skinning_backward, *YARDSTICKS)
+
+
+def reset_counts() -> None:
+    for fn in COUNTED:
+        fn.launches = 0
+
+
+def read_counts(label: str) -> Counter:
+    """Every kernel's launches since `reset_counts`, once no yardstick ran."""
+    for fn in YARDSTICKS:
+        check(fn.launches == 0, f"{label}: the yardstick kernel {fn.__name__} ran on the main path")
+    return Counter({fn.__name__: fn.launches for fn in COUNTED})
 
 
 def phase_kernel_check() -> dict[str, float]:
     """`skinning` (v2) and `skinning_simt` (v1) against the plain version
-    at each shape, and `skinning_backward` against its plain version
-    (both gradients within 1e-5 x max |plain| + 1e-7); returns each one's
-    largest error."""
+    at each shape, and `skinning_backward` and `skinning_backward_simt`
+    against their plain version (both gradients within 1e-5 x max |plain|
+    + 1e-7); returns each one's largest error."""
     print("== 3. kernel check")
     worst = {label: 0.0 for label in KERNELS_UNDER_TEST}
     for batch, num_verts in SKIN_SHAPES:
@@ -346,17 +365,18 @@ def phase_kernel_check() -> dict[str, float]:
             check(err <= SKIN_TOL, f"skinning {label} disagrees with its plain version: {err}")
             worst[label] = max(worst[label], err)
         grad_out = backward_grad(batch, num_verts, seed=batch + num_verts)
-        got = skinning_backward(*args, grad_out)
-        torch.cuda.synchronize()
         ref = skinning_backward_reference(*args, grad_out)
-        for name, g, r in zip(("grad_v_posed", "grad_rel_tfms"), got, ref):
-            err = float((g - r).abs().max())
-            bar = BACKWARD_RTOL * float(r.abs().max()) + BACKWARD_ATOL
-            print(f"skinning_backward B={batch} V={num_verts} {name}: max_abs_err {err:.3e} "
-                  f"(tolerance {bar:.3e} = {BACKWARD_RTOL} x max |plain| {float(r.abs().max()):.3e} "
-                  f"+ {BACKWARD_ATOL})")
-            check(err <= bar, f"skinning_backward {name} disagrees with its plain version: {err}")
-            worst["backward"] = max(worst.get("backward", 0.0), err)
+        for label, fn in BACKWARD_UNDER_TEST.items():
+            got = fn(*args, grad_out)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("grad_v_posed", "grad_rel_tfms"), got, ref):
+                err = float((g - r).abs().max())
+                bar = BACKWARD_RTOL * float(r.abs().max()) + BACKWARD_ATOL
+                print(f"{fn.__name__} B={batch} V={num_verts} {name}: max_abs_err {err:.3e} "
+                      f"(tolerance {bar:.3e} = {BACKWARD_RTOL} x max |plain| "
+                      f"{float(r.abs().max()):.3e} + {BACKWARD_ATOL})")
+                check(err <= bar, f"{fn.__name__} {name} disagrees with its plain version: {err}")
+                worst[label] = max(worst.get(label, 0.0), err)
     return worst
 
 
@@ -430,20 +450,23 @@ def backward_bound(batch: int, num_verts: int, peaks: Peaks) -> dict:
 
 
 def phase_backward_timing(peaks: Peaks) -> dict:
-    """The backward kernel hot and cold at the training batch and twice
-    it, in turns with its plain version, beside its bound and autograd
-    through `skinning_reference` (the plain forward's own backward)."""
+    """The backward kernel (v2) and its fp32-FMA yardstick (v1) hot and
+    cold at the training batch and twice it, in turns v2, v1, v1, v2,
+    beside the bound, the plain version and autograd through
+    `skinning_reference` (the plain forward's own backward)."""
     print("== 7b. backward kernel timing")
+    fns = {"v2": skinning_backward, "v1": skinning_backward_simt}
     times = None
     for batch, num_verts in BACKWARD_SHAPES:
         args = skinning_inputs(batch, num_verts, seed=batch + num_verts)
         full = args + [backward_grad(batch, num_verts, seed=batch + num_verts)]
         n = max(4, math.ceil(2 * 50 * 2**20 / backward_bytes(batch, num_verts)))
         sets = [[a.clone() for a in full] for _ in range(n)]
-        hot, cold = [], []
-        for _ in range(2):
-            hot.append(hot_ms(skinning_backward, full))
-            cold.append(cold_ms(skinning_backward, sets))
+        hot = {k: [] for k in fns}
+        cold = {k: [] for k in fns}
+        for label in ("v2", "v1", "v1", "v2"):
+            hot[label].append(hot_ms(fns[label], full))
+            cold[label].append(cold_ms(fns[label], sets))
         plain_hot = hot_ms(skinning_backward_reference, full, calls=40)
         tfms = args[1].clone().requires_grad_(True)
         vp = args[2].clone().requires_grad_(True)
@@ -457,15 +480,22 @@ def phase_backward_timing(peaks: Peaks) -> dict:
         print(f"skinning_backward B={batch} V={num_verts}: bound {bound['ms']:.5f} ms "
               f"({bound['by']}: bytes {bound['bytes_ms']:.5f}, 3xTF32 products + fp32 rest "
               f"{bound['ops_ms']:.5f}; fp32 FMA alone {bound['fp32_fma_ms']:.5f})")
-        for kind, ts in (("hot", hot), ("cold", cold)):
-            mean = statistics.fmean(ts)
-            print(f"  kernel {kind:4s} {mean:.5f} ms (turns {ts[0]:.5f}, {ts[1]:.5f}) = "
-                  f"{bound['ms'] / mean:.3f} of bound")
+        for label, fn in fns.items():
+            for kind, ts in (("hot", hot[label]), ("cold", cold[label])):
+                mean = statistics.fmean(ts)
+                print(f"  {label} ({fn.__name__}) {kind:4s} {mean:.5f} ms (turns {ts[0]:.5f}, {ts[1]:.5f}) = "
+                      f"{bound['ms'] / mean:.3f} of bound")
+        faster = all(a < b for k in (hot, cold) for a in k["v2"] for b in k["v1"])
+        print(f"  v1 / v2: hot {statistics.fmean(hot['v1']) / statistics.fmean(hot['v2']):.2f}x, "
+              f"cold {statistics.fmean(cold['v1']) / statistics.fmean(cold['v2']):.2f}x; v2 "
+              f"faster in every turn: {faster}")
         print(f"  plain (skinning_backward_reference) hot {plain_hot:.5f} ms; autograd through "
               f"skinning_reference {auto_ms:.5f} ms (forward and backward, CUDA events); "
               "no single PyTorch call computes it")
         if times is None:  # the training batch
-            times = {"ms": statistics.fmean(hot), "cold_ms": statistics.fmean(cold),
+            times = {"ms": statistics.fmean(hot["v2"]), "cold_ms": statistics.fmean(cold["v2"]),
+                     "earlier_ms": statistics.fmean(hot["v1"]),
+                     "earlier_cold_ms": statistics.fmean(cold["v1"]),
                      "plain_ms": plain_hot, "autograd_plain_ms": auto_ms,
                      "bound_ms": bound["ms"], "bound_by": bound["by"]}
     return times
@@ -517,18 +547,16 @@ def check_shapes(out: dict, n: int, extra: dict) -> None:
         check(bool(torch.isfinite(out[key]).all()), f"{key}: not finite")
 
 
-def drive_requests(label: str, model, smpl, image, requests) -> tuple[int, list]:
+def drive_requests(label: str, model, smpl, image, requests) -> tuple[Counter, list]:
     """The main path: `detect_forward` once per request, with the kernels'
     counts set to 0 just before and read just after."""
-    skinning.launches = skinning_simt.launches = 0
+    reset_counts()
     outputs = [detect_forward(model, smpl, image, c, s) for c, s in requests]
     torch.cuda.synchronize()
-    launches = skinning.launches
-    print(f"{label} requests {[len(c) for c, _ in requests]}: skinning launches "
-          f"{launches}, skinning_simt launches {skinning_simt.launches}")
-    check(launches == len(requests), f"{label}: skinning must launch once per request")
-    check(skinning_simt.launches == 0, f"{label}: the yardstick kernel ran on the main path")
-    return launches, outputs
+    counts = read_counts(label)
+    print(f"{label} requests {[len(c) for c, _ in requests]}: launches {dict(counts)}")
+    check(counts["skinning"] == len(requests), f"{label}: skinning must launch once per request")
+    return counts, outputs
 
 
 def fp64_forward(model, smpl, batch: dict) -> dict:
@@ -617,7 +645,7 @@ def phase_main_path(seed: int) -> dict:
     print(f"model: {n_params} parameters; SMPL V={smpl.v_template.shape[0]}")
 
     requests = [random_boxes(rng, n, h, w) for n in (1, 8, 128)]
-    launches, outputs = drive_requests("cliff", model, smpl, image, requests)
+    counts, outputs = drive_requests("cliff", model, smpl, image, requests)
     for (c, _), out in zip(requests, outputs):
         n = len(c)
         check_shapes(out, n, {"pred_fullimg_cam_t": (n, 3), "var_pose": (n, 24)})
@@ -625,7 +653,7 @@ def phase_main_path(seed: int) -> dict:
     c2, s2 = random_boxes(rng, 2, h, w)
     card_vs_cpu("cliff", model, build_poco_cliff, smpl, image, c2, s2,
                 ("pred_cam", "pred_shape", "var_pose"))
-    return {"launches": launches, "model": model, "smpl": smpl, "image": image,
+    return {"counts": counts, "model": model, "smpl": smpl, "image": image,
             "request": requests[-1], "calib": calib, "rng": rng}
 
 
@@ -637,7 +665,7 @@ def phase_pare(ctx: dict, seed: int) -> dict:
     print(f"model: {sum(p.numel() for p in model.parameters())} parameters")
     rng, (h, w) = ctx["rng"], ctx["image"].shape[:2]
     requests = [random_boxes(rng, n, h, w) for n in (1, 8, 128)]
-    launches, outputs = drive_requests("pare", model, ctx["smpl"], ctx["image"], requests)
+    counts, outputs = drive_requests("pare", model, ctx["smpl"], ctx["image"], requests)
     for (c, _), out in zip(requests, outputs):
         n = len(c)
         check_shapes(out, n, {"var_pose": (n, 24), "pred_segm_mask": (n, 25, 56, 56),
@@ -646,7 +674,7 @@ def phase_pare(ctx: dict, seed: int) -> dict:
     c2, s2 = random_boxes(rng, 2, h, w)
     card_vs_cpu("pare", model, build_poco_pare, ctx["smpl"], ctx["image"], c2, s2,
                 ("pred_cam", "pred_shape", "var_pose"), vertices_vs_fp64=True)
-    return {"launches": launches, "model": model, "request": requests[-1]}
+    return {"counts": counts, "model": model, "request": requests[-1]}
 
 
 def gt_batch(image, centers, scales, rng, device) -> dict:
@@ -659,29 +687,30 @@ def gt_batch(image, centers, scales, rng, device) -> dict:
     return batch
 
 
-def phase_flow(ctx: dict, pare: dict, seed: int) -> int:
+def phase_flow(ctx: dict, pare: dict, seed: int) -> Counter:
     """log_phi with a GT pose at B=128 on the card (both POCO models),
-    and card against CPU at B=2. Returns the skinning launches."""
+    and card against CPU at B=2. Returns the kernels' launches."""
     print("== 4c. flow head: log_phi with a GT pose")
     rng, image, smpl = np.random.RandomState(seed + 3), ctx["image"], ctx["smpl"]
     h, w = image.shape[:2]
     big = gt_batch(image, *random_boxes(rng, 128, h, w), rng, "cuda")
     small = gt_batch(image, *random_boxes(rng, 2, h, w), rng, "cpu")
-    launches = 0
+    total = Counter()
     for label, model, build in (("cliff", ctx["model"], build_poco_cliff),
                                 ("pare", pare["model"], build_poco_pare)):
-        skinning.launches = 0
+        reset_counts()
         with torch.inference_mode():
             out = model(big, smpl)
         torch.cuda.synchronize()
-        launches += skinning.launches
+        counts = read_counts(f"{label} flow")
+        total.update(counts)
         log_phi = out["log_phi"]
         print(f"{label} log_phi: shape {tuple(log_phi.shape)}, range "
               f"[{float(log_phi.min()):.4f}, {float(log_phi.max()):.4f}], "
-              f"skinning launches {skinning.launches}")
+              f"launches {dict(counts)}")
         check(tuple(log_phi.shape) == (128, 24), f"{label} log_phi: {tuple(log_phi.shape)}")
         check(bool(torch.isfinite(log_phi).all()), f"{label} log_phi: not finite")
-        check(skinning.launches == 1, f"{label}: skinning must launch once a forward")
+        check(counts["skinning"] == 1, f"{label}: skinning must launch once a forward")
         cpu_model = build(device="cpu", **dataclasses.asdict(model.cfg))
         cpu_model.load_state_dict(model.state_dict())
         with torch.inference_mode():
@@ -692,10 +721,10 @@ def phase_flow(ctx: dict, pare: dict, seed: int) -> int:
               f"{float((on_card - on_cpu).abs().max()):.3e} (tolerance {LOG_PHI_ATOL} + "
               f"{LOG_PHI_RTOL} x |log_phi|)")
         check(excess <= LOG_PHI_ATOL, f"{label} log_phi: card and CPU disagree")
-    return launches
+    return total
 
 
-def phase_hmr(ctx: dict, seed: int) -> int:
+def phase_hmr(ctx: dict, seed: int) -> Counter:
     print("== 4d. HMR baseline detect_forward at full width")
     model = calibrated_model(build_hmr, REPO / "configs/spin_hmr.yaml", seed + 4,
                              "cuda", ctx["calib"])
@@ -703,13 +732,13 @@ def phase_hmr(ctx: dict, seed: int) -> int:
     print(f"model: {sum(p.numel() for p in model.parameters())} parameters")
     rng, (h, w) = ctx["rng"], ctx["image"].shape[:2]
     requests = [random_boxes(rng, 8, h, w)]
-    launches, (out,) = drive_requests("hmr", model, ctx["smpl"], ctx["image"], requests)
+    counts, (out,) = drive_requests("hmr", model, ctx["smpl"], ctx["image"], requests)
     check_shapes(out, 8, {"uncert_feat": (8, 2048)})
     check("var_pose" not in out and out["log_phi"] is None, "hmr: an uncertainty was emitted")
     c2, s2 = random_boxes(rng, 2, h, w)
     card_vs_cpu("hmr", model, build_hmr, ctx["smpl"], ctx["image"], c2, s2,
                 ("pred_cam", "pred_shape"), vertices_vs_fp64=True)
-    return launches
+    return counts
 
 
 class SyntheticEvalSet:
@@ -908,8 +937,8 @@ def svd_sync_report(card: str) -> None:
 
 
 def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
-    """3DPW-style evaluation at full width; returns the skinning launches
-    of its main-path runs and the eval step on a batch of 64, flip-TTA off
+    """3DPW-style evaluation at full width; returns the kernels' launches
+    in its main-path runs and the eval step on a batch of 64, flip-TTA off
     and on, for the profile."""
     print("== 4e. evaluation at full width: POCO-CLIFF run_eval, 3DPW-style synthetic set")
     smpls = (ctx["smpl"],
@@ -921,19 +950,19 @@ def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
     n_batches = math.ceil(EVAL_SAMPLES / EVAL_BATCH)
     print(f"{EVAL_SAMPLES} samples in {n_batches} batches of {EVAL_BATCH}; SMPL neutral, "
           f"male, female at V=6890 from seeds {seed}, {seed + 11}, {seed + 12}")
-    launches = 0
+    total = Counter()
     for flip in (False, True):
-        skinning.launches = skinning_simt.launches = 0
+        reset_counts()
         result = run_eval(model, data, *smpls, batch_size=EVAL_BATCH,
                           loss_ver=model.cfg.loss_ver, flip_test=flip)
         torch.cuda.synchronize()
-        n = skinning.launches
-        print(f"eval flip_test={flip}: skinning launches {n} ({n / n_batches:g} a batch), "
-              f"skinning_simt launches {skinning_simt.launches}")
+        counts = read_counts("eval")
+        total.update(counts)
+        n = counts["skinning"]
+        print(f"eval flip_test={flip}: launches {dict(counts)} (skinning "
+              f"{n / n_batches:g} a batch)")
         check(n == EVAL_LAUNCHES[flip] * n_batches,
               f"eval: skinning must launch {EVAL_LAUNCHES[flip]} times a batch")
-        check(skinning_simt.launches == 0, "eval: the yardstick kernel ran on the main path")
-        launches += n
         check(len(result.imgnames) == EVAL_SAMPLES, "eval: samples lost")
         for key in ("mpjpe_mm", "pa_mpjpe_mm", "v2v_mm", "uncert", "pose_dist"):
             check(bool(np.isfinite(getattr(result, key)).all()), f"eval {key}: not finite")
@@ -947,16 +976,17 @@ def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
     eval_procrustes_vs_fp64(model, data, smpls)
     eval_flip_exact()
 
-    skinning.launches = 0
+    reset_counts()
     pare_result = run_eval(pare["model"], Subset(data, range(EVAL_BATCH)), *smpls,
                            batch_size=EVAL_BATCH, loss_ver=pare["model"].cfg.loss_ver)
     torch.cuda.synchronize()
-    print(f"eval POCO-PARE, one batch of {EVAL_BATCH}: skinning launches {skinning.launches}; "
+    counts = read_counts("eval pare")
+    total.update(counts)
+    print(f"eval POCO-PARE, one batch of {EVAL_BATCH}: launches {dict(counts)}; "
           f"summary {json.dumps(pare_result.summary())}")
-    check(skinning.launches == EVAL_LAUNCHES[False], "eval pare: 5 skinning launches a batch")
+    check(counts["skinning"] == EVAL_LAUNCHES[False], "eval pare: 5 skinning launches a batch")
     for key in ("mpjpe_mm", "pa_mpjpe_mm", "v2v_mm", "uncert"):
         check(bool(np.isfinite(getattr(pare_result, key)).all()), f"eval pare {key}: not finite")
-    launches += skinning.launches
 
     # samples/s at batch 64 with flip-TTA off and on, in turns; and at
     # batch 128 without it, the serving phases' batch, for comparison
@@ -979,7 +1009,7 @@ def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
     svd_sync_report(card)
     batch = device_batch(data, range(EVAL_BATCH))
     steps = {flip: make_gendered_eval_step(model, flip_test=flip) for flip in (False, True)}
-    return {"launches": launches,
+    return {"counts": total,
             "run_batch": {flip: (lambda s=s: s(batch, *smpls)) for flip, s in steps.items()}}
 
 
@@ -1223,23 +1253,21 @@ def phase_train(ctx: dict, seed: int, card: str) -> dict:
     counts, losses = [], []
     counted_steps(trainer, counts, losses)
 
-    skinning.launches = skinning_backward.launches = skinning_simt.launches = 0
+    reset_counts()
     start = time.perf_counter()
     summary = trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - start
-    launches = {"skinning": skinning.launches, "skinning_backward": skinning_backward.launches}
+    launches = read_counts("train")
     n_val = math.ceil(TRAIN_VAL_SAMPLES / batch_size) * EVAL_LAUNCHES[False]
-    print(f"fit: {len(counts)} steps and validation in {fit_s:.3f} s; launches skinning "
-          f"{launches['skinning']} (validation {n_val}), skinning_backward "
-          f"{launches['skinning_backward']}, skinning_simt {skinning_simt.launches}; per step "
+    print(f"fit: {len(counts)} steps and validation in {fit_s:.3f} s; launches "
+          f"{dict(launches)} (skinning in validation {n_val}); per step "
           f"{sorted(set(counts))}")
     check(len(counts) == TRAIN_STEPS, f"train: {len(counts)} steps, not {TRAIN_STEPS}")
     check(all(c == TRAIN_LAUNCHES for c in counts),
           f"train: each step must launch skinning 2 and skinning_backward 1 times: {counts}")
     check(launches["skinning"] == TRAIN_LAUNCHES[0] * TRAIN_STEPS + n_val,
           "train: validation must launch skinning 5 times a batch")
-    check(skinning_simt.launches == 0, "train: the yardstick kernel ran on the main path")
     for i, terms in enumerate(losses):
         check(all(math.isfinite(v) for v in terms.values()), f"train step {i}: {terms}")
     print(f"train losses by step: {[round(t['loss/total_loss'], 4) for t in losses]}")
@@ -1307,7 +1335,7 @@ def phase_train(ctx: dict, seed: int, card: str) -> dict:
           f"{batch_size / min(ts):.1f}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
     trainer.close()
-    return {"launches": launches, "run_step": lambda: step(batch, smpl), "tmp": tmp}
+    return {"counts": launches, "run_step": lambda: step(batch, smpl), "tmp": tmp}
 
 
 def timed_requests(run, reps: int) -> list[float]:
@@ -1394,8 +1422,19 @@ def staged_us(prof, stages) -> dict[str, float]:
     return out
 
 
+# device kernel names of each wrapper (the backward's two kernels overlap
+# under programmatic dependent launch, so their spans are merged)
 SKIN_KERNELS = {"skinning": ("skin_tc_kernel",),
-                "skinning_backward": ("grad_pass", "reduce_pass")}
+                "skinning_backward": ("grad_tc_kernel", "reduce_tiles")}
+
+
+def merged_us(spans) -> float:
+    """Time covered by (start, end) spans, overlaps counted once."""
+    total, end = 0.0, float("-inf")
+    for s0, s1 in sorted(spans):
+        total += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+    return total
 
 
 def profile_request(label: str, run, card: str, stages=EVAL_STAGES) -> None:
@@ -1421,16 +1460,15 @@ def profile_request(label: str, run, card: str, stages=EVAL_STAGES) -> None:
     if not spans:
         print(f"{label} device time: not measured (the profiler recorded no device events)")
         return
-    busy, end, by_name = 0.0, float("-inf"), {}
+    busy = merged_us((s0, s1) for s0, s1, _ in spans)
+    by_name = {}
     for s0, s1, name in spans:
-        busy += max(0.0, s1 - max(s0, end))
-        end = max(end, s1)
         by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
     print(f"{label}: device busy {busy / n / 1e3:.3f} ms a call of "
           f"{wall_us / n / 1e3:.3f} ms wall: busy share {busy / wall_us:.4f}, "
           f"idle share {1 - busy / wall_us:.4f}, on {card}")
     for kernel, marks in SKIN_KERNELS.items():
-        t = sum(v for name, v in by_name.items() if any(m in name for m in marks))
+        t = merged_us((s0, s1) for s0, s1, name in spans if any(m in name for m in marks))
         if t > 0:
             print(f"{label}: {kernel} kernel {t / n / 1e3:.4f} ms a call = "
                   f"{t / busy:.5f} of device time")
@@ -1491,18 +1529,17 @@ def main() -> int:
     errs = phase_kernel_check()
     ctx = phase_main_path(args.seed)
     pare = phase_pare(ctx, args.seed)
-    flow_launches = phase_flow(ctx, pare, args.seed)
-    hmr_launches = phase_hmr(ctx, args.seed)
+    paths = {"cliff": ctx["counts"], "pare": pare["counts"],
+             "flow": phase_flow(ctx, pare, args.seed), "hmr": phase_hmr(ctx, args.seed)}
     evaluation = phase_eval(ctx, pare, args.seed, card)
-    eval_launches = evaluation["launches"]
+    paths["eval"] = evaluation["counts"]
     train = phase_train(ctx, args.seed, card)
-    train_launches = train["launches"]
-    launches = (ctx["launches"] + pare["launches"] + flow_launches + hmr_launches
-                + eval_launches + train_launches["skinning"])
-    print(f"skinning launches on the main paths: {launches} (cliff {ctx['launches']}, "
-          f"pare {pare['launches']}, flow {flow_launches}, hmr {hmr_launches}, "
-          f"eval {eval_launches}, train {train_launches['skinning']}); skinning_backward "
-          f"{train_launches['skinning_backward']} (train); skinning_simt 0")
+    paths["train"] = train["counts"]
+    launches = Counter()
+    for counts in paths.values():
+        launches.update(counts)
+    print(f"launches on the main paths: {dict(launches)}; by path "
+          f"{ {path: dict(counts) for path, counts in paths.items()} }")
     phase_throughput(ctx, pare, args.reps, card)
     phase_profile(ctx, pare, evaluation, train, card)
     train["tmp"].cleanup()
@@ -1511,17 +1548,24 @@ def main() -> int:
     common = {"route": "cuda", "replaces": "poco_tpu/ops/pallas_lbs.py:87", "library_ms": None}
     records = [
         {"name": "skinning", "source": "poco_tpu_torch/csrc/skinning.cu", **common,
-         "launches": launches, "max_abs_err": errs["v2"],
+         "launches": launches["skinning"], "max_abs_err": errs["v2"],
          **{k: v for k, v in times.items() if not k.startswith("earlier")}},
         {"name": "skinning_simt", "source": "poco_tpu_torch/csrc/skinning_simt.cu", **common,
-         "launches": 0, "max_abs_err": errs["v1"], "ms": times["earlier_ms"],
+         "launches": launches["skinning_simt"], "max_abs_err": errs["v1"],
+         "ms": times["earlier_ms"],
          "cold_ms": times["earlier_cold_ms"], "plain_ms": times["plain_ms"],
          "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]},
         # the JAX package differentiates its einsum path with XLA: no Pallas kernel
         {"name": "skinning_backward", "source": "poco_tpu_torch/csrc/skinning_backward.cu",
          **common, "replaces": "poco_tpu/smpl/lbs.py:177",
-         "launches": train_launches["skinning_backward"], "max_abs_err": errs["backward"],
+         "launches": launches["skinning_backward"], "max_abs_err": errs["backward"],
          **backward_times},
+        {"name": "skinning_backward_simt",
+         "source": "poco_tpu_torch/csrc/skinning_backward_simt.cu", **common,
+         "replaces": "poco_tpu/smpl/lbs.py:177", "launches": launches["skinning_backward_simt"],
+         "max_abs_err": errs["backward_simt"], "ms": backward_times["earlier_ms"],
+         "cold_ms": backward_times["earlier_cold_ms"], "plain_ms": backward_times["plain_ms"],
+         "bound_ms": backward_times["bound_ms"], "bound_by": backward_times["bound_by"]},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({

@@ -1,7 +1,7 @@
 """Evaluation CLI: a 3DPW-style test on one device (the port's counterpart
 of the repo's `eval.py`).
 
-    python -m poco_tpu_torch.cli.eval --cfg configs/poco_cliff.yaml \\
+    python -m poco_tpu_torch.cli.eval --cfg configs/poco_cliff.yaml [--cfg_id N] \\
         --ckpt <.pt file or a logdir holding one> [--dataset 3dpw] \\
         [--data_dir data] [--smpl_dir DIR] [--batch_size 64] [--out report.json] \\
         [--flip_test] [--device cuda|cpu]
@@ -28,6 +28,9 @@ import torch
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cfg", required=True)
+    parser.add_argument("--cfg_id", type=int, default=None,
+                        help="experiment id within a grid-search config (one whose "
+                             "values are lists); creates no logdir")
     parser.add_argument("--ckpt", default=None,
                         help="torch .pt/.ckpt file, or a run logdir holding one")
     parser.add_argument("--dataset", default=None)
@@ -55,14 +58,23 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ..config import dataset_npz_path, model_config_from_hparams, update_hparams
+    from ..config import (
+        dataset_npz_path,
+        model_config_from_hparams,
+        run_grid_search_experiments,
+        update_hparams,
+    )
     from ..data.dataset import PocoDataset
     from ..eval.runner import pw3d_split_report, run_eval
     from ..models.poco import POCO
     from ..smpl.assets import resolve_smpl_params
     from ..utils.checkpoint import load_checkpoint_into
 
-    hparams = update_hparams(args.cfg)
+    if args.cfg_id is not None:
+        # a grid-search config: one experiment, and no logdir written
+        hparams = run_grid_search_experiments(args.cfg, cfg_id=args.cfg_id, log=False)
+    else:
+        hparams = update_hparams(args.cfg)
     if args.data_dir:
         hparams.DATASET.DATA_DIR = args.data_dir
     data_dir = hparams.DATASET.DATA_DIR

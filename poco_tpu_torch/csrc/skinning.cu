@@ -419,20 +419,27 @@ skin_tc_kernel(const float* __restrict__ weights,  // (V, 24)
 }
 
 // Samples per block: as few as fill the card in one wave of blocks (more
-// blocks in flight hide more latency), rounded up to a pair.
-int group_size(int batch, int tiles) {
+// blocks in flight hide more latency), rounded up to a pair. A failed
+// query is returned to the caller and not cached.
+cudaError_t group_size(int batch, int tiles, int* group) {
   static int resident[64];  // blocks the card holds at once, by device
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) dev = 0;
-  if (resident[dev] == 0) {
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int held = dev < 64 ? resident[dev] : 0;
+  if (held == 0) {
     int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, skin_tc_kernel, kThreads, 0);
-    resident[dev] = max(1, sms * per_sm);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, skin_tc_kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    held = max(1, sms * per_sm);
+    if (dev < 64) resident[dev] = held;
   }
-  const int groups = max(1, resident[dev] / tiles);
-  const int group = (batch + groups - 1) / groups;
-  return group + (group & 1);
+  const int groups = max(1, held / tiles);
+  const int g = (batch + groups - 1) / groups;
+  *group = g + (g & 1);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -446,7 +453,9 @@ extern "C" int poco_skinning_f32(const float* weights, const float* tfms,
   }
   if (batch == 0 || num_verts == 0) return 0;
   const int tiles = (num_verts + kTile - 1) / kTile;
-  const int group = group_size(batch, tiles);
+  int group = 0;
+  const cudaError_t query = group_size(batch, tiles, &group);
+  if (query != cudaSuccess) return static_cast<int>(query);
   const int blocks_y = (batch + group - 1) / group;
   if (blocks_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   skin_tc_kernel<<<dim3(tiles, blocks_y), kThreads, 0, stream>>>(

@@ -24,6 +24,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {
     "skinning": "skinning.cu",
     "skinning_backward": "skinning_backward.cu",
+    "skinning_backward_simt": "skinning_backward_simt.cu",
     "skinning_simt": "skinning_simt.cu",
 }
 

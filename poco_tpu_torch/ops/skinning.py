@@ -9,9 +9,10 @@ whose backward launches `csrc/skinning_backward.cu` (`skinning_backward`,
 plain version `skinning_backward_reference`): the gradients of v_posed and
 of the transforms; the skinning weights are SMPL buffers and get none.
 `skinning_simt` launches the first, fp32-FMA version of the forward kernel
-(`csrc/skinning_simt.cu`) under the same contract but without a backward;
-it is off the main path and kept as the yardstick the redesign is timed
-against.
+(`csrc/skinning_simt.cu`) under the same contract but without a backward,
+and `skinning_backward_simt` the first, fp32-FMA version of the backward
+(`csrc/skinning_backward_simt.cu`); both are off the main path and kept
+as the yardsticks the redesigns are timed against.
 """
 
 from __future__ import annotations
@@ -180,6 +181,30 @@ def skinning(
     return out
 
 
+def _backward(library, suffix, lbs_weights, rel_tfms, v_posed, grad_out):
+    """Check the CUDA inputs, allocate the outputs and the scratch of
+    per-tile partial sums (sized from the library's tile), and launch the
+    backward kernel of `library`. Counts nothing: the wrappers do."""
+    tensors = (lbs_weights, rel_tfms, v_posed, grad_out)
+    device = _check_cuda(library, tensors, "(V, 24), (B, 24, 4, 4), (B, V, 3), (B, V, 3)")
+    batch, num_verts = v_posed.shape[:2]
+    grad_v_posed = torch.empty((batch, num_verts, 3), dtype=torch.float32, device=device)
+    grad_rel_tfms = torch.empty(
+        (batch, NUM_JOINTS, 4, 4), dtype=torch.float32, device=device
+    )
+    chunk = getattr(kernels.load(library), "poco_skinning_backward_chunk" + suffix)()
+    chunks = -(-num_verts // chunk)
+    partial = torch.empty(
+        (batch, chunks, NUM_JOINTS * 12), dtype=torch.float32, device=device
+    )
+    _call(
+        library, "poco_skinning_backward_f32" + suffix, device,
+        [t.data_ptr() for t in (*tensors, grad_v_posed, grad_rel_tfms, partial)],
+        (batch, num_verts, NUM_JOINTS),
+    )
+    return grad_v_posed, grad_rel_tfms
+
+
 def skinning_backward(
     lbs_weights: torch.Tensor,
     rel_tfms: torch.Tensor,
@@ -190,33 +215,32 @@ def skinning_backward(
     `skinning_backward_reference`.
 
     CPU tensors take the plain version. CUDA tensors must be float32,
-    contiguous and on one device; the kernel writes fresh outputs (and a
-    scratch of per-chunk partial sums) on the current stream, and
-    `skinning_backward.launches` counts each launch.
+    contiguous and on one device; the kernel (3xTF32 tensor cores) writes
+    fresh outputs (and a scratch of per-tile partial sums) on the current
+    stream, and `skinning_backward.launches` counts each launch.
     """
     tensors = (lbs_weights, rel_tfms, v_posed, grad_out)
     if all(t.device.type == "cpu" for t in tensors):
         return skinning_backward_reference(*tensors)
-    device = _check_cuda(
-        "skinning_backward", tensors, "(V, 24), (B, 24, 4, 4), (B, V, 3), (B, V, 3)"
-    )
-    batch, num_verts = v_posed.shape[:2]
-    grad_v_posed = torch.empty((batch, num_verts, 3), dtype=torch.float32, device=device)
-    grad_rel_tfms = torch.empty(
-        (batch, NUM_JOINTS, 4, 4), dtype=torch.float32, device=device
-    )
-    chunk = kernels.load("skinning_backward").poco_skinning_backward_chunk()
-    chunks = -(-num_verts // chunk)
-    partial = torch.empty(
-        (batch, chunks, NUM_JOINTS * 12), dtype=torch.float32, device=device
-    )
-    _call(
-        "skinning_backward", "poco_skinning_backward_f32", device,
-        [t.data_ptr() for t in (*tensors, grad_v_posed, grad_rel_tfms, partial)],
-        (batch, num_verts, NUM_JOINTS),
-    )
+    out = _backward("skinning_backward", "", *tensors)
     skinning_backward.launches += 1
-    return grad_v_posed, grad_rel_tfms
+    return out
+
+
+def skinning_backward_simt(
+    lbs_weights: torch.Tensor,
+    rel_tfms: torch.Tensor,
+    v_posed: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32-FMA backward kernel, the yardstick of `skinning_backward`;
+    same contract, counted in `skinning_backward_simt.launches`."""
+    tensors = (lbs_weights, rel_tfms, v_posed, grad_out)
+    if all(t.device.type == "cpu" for t in tensors):
+        return skinning_backward_reference(*tensors)
+    out = _backward("skinning_backward_simt", "_simt", *tensors)
+    skinning_backward_simt.launches += 1
+    return out
 
 
 def skinning_simt(
@@ -236,4 +260,5 @@ def skinning_simt(
 
 skinning.launches = 0
 skinning_backward.launches = 0
+skinning_backward_simt.launches = 0
 skinning_simt.launches = 0

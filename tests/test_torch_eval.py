@@ -539,3 +539,50 @@ def test_eval_result_reports_match_jax_on_the_same_arrays():
     assert port.per_joint_stats() == ref.per_joint_stats()
     bare = dataclasses.replace(port, uncert=None, pose_dist=None)
     assert bare.per_joint_stats() is None and "uncert_mpjpe_corr" not in bare.summary()
+
+
+# --------------------------------------------------------------------------
+# the evaluation CLI's --cfg_id
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cfg_id", [0, 1])
+def test_cli_cfg_id_selects_the_experiment_of_jax_eval_py(tmp_path, monkeypatch, cfg_id):
+    """`python -m poco_tpu_torch.cli.eval --cfg <grid yaml> --cfg_id N`
+    takes experiment N of a two-experiment grid-search config: the same
+    hparams that the JAX `eval.py:81-89` takes through
+    `poco_tpu.config.run_grid_search_experiments(..., log=False)`, and
+    nothing is written under LOG_DIR. The CLI is stopped where it builds
+    the model from the hparams."""
+    import time
+
+    import yaml
+    from poco_tpu.config import run_grid_search_experiments as jax_grid_search
+
+    import poco_tpu_torch.config as port_config
+    from poco_tpu_torch.cli import eval as cli_eval
+
+    logs = tmp_path / "logs"
+    cfg_file = tmp_path / "sweep.yaml"
+    cfg_file.write_text(yaml.safe_dump(
+        {"EXP_NAME": "sweep_test", "LOG_DIR": str(logs), "OPTIMIZER": {"LR": [1e-4, 1e-5]}}
+    ))
+
+    class Selected(Exception):
+        pass
+
+    seen = []
+
+    def stop_at_the_model(hparams):
+        seen.append(hparams)
+        raise Selected
+
+    monkeypatch.setattr(port_config, "model_config_from_hparams", stop_at_the_model)
+    # both sides name the (unwritten) logdir by the time of day
+    monkeypatch.setattr(time, "strftime", lambda *args: "17-10-2026_00-00-00")
+    with pytest.raises(Selected):
+        cli_eval.main(["--cfg", str(cfg_file), "--cfg_id", str(cfg_id), "--device", "cpu"])
+    expect = jax_grid_search(str(cfg_file), cfg_id=cfg_id, log=False)
+    assert len(seen) == 1
+    assert seen[0].OPTIMIZER.LR == [1e-4, 1e-5][cfg_id]
+    assert seen[0].to_dict() == expect.to_dict()
+    assert not logs.exists()

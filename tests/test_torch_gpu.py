@@ -13,10 +13,12 @@ at odd sample counts (a pair with one sample), and at any 4-byte
 alignment of the tensors. The main paths (POCO-CLIFF, POCO-PARE, HMR)
 launch `skinning` once per SMPL forward and never `skinning_simt`; the
 flow head's forward runs on the card. The backward kernel
-(`skinning_backward`) is held to its plain version at every batch the
-paths launch it with, within 1e-5 x max |plain| + 1e-7 for both
-gradients, gives bit-identical gradients on a second run (no atomics),
-and carries autograd through `skinning`; skinning weights that need a
+(`skinning_backward`, 3xTF32 tensor cores) and its fp32-FMA yardstick
+(`skinning_backward_simt`) are held to their plain version at every batch
+the paths launch them with, at the edges of the warp slices and tiles of
+both, and at any 4-byte alignment, within 1e-5 x max |plain| + 1e-7 for
+both gradients; they give bit-identical gradients on a second run (no
+atomics), and `skinning_backward` carries autograd through `skinning`; skinning weights that need a
 gradient raise (the kernel gives them none). The eval step runs on the
 card as on the CPU (per-sample metrics within 1e-4 m), launches
 `skinning` 5 times a batch (7 with flip-TTA), its Procrustes matches
@@ -42,6 +44,7 @@ from poco_tpu_torch.ops.skinning import (
     skinning,
     skinning_backward,
     skinning_backward_reference,
+    skinning_backward_simt,
     skinning_reference,
     skinning_simt,
 )
@@ -53,6 +56,10 @@ pytestmark = pytest.mark.gpu
 
 ATOL = 1e-4
 KERNELS = {"skinning": skinning, "skinning_simt": skinning_simt}
+BACKWARD_KERNELS = {
+    "skinning_backward": skinning_backward,
+    "skinning_backward_simt": skinning_backward_simt,
+}
 
 
 @pytest.fixture
@@ -152,24 +159,61 @@ def _backward_close(got, ref):
     assert err <= bar, (err, bar)
 
 
-@pytest.mark.parametrize(
-    "batch,num_verts",
-    [(128, 6890), (64, 6890), (16, 6890), (8, 6890), (2, 6890), (1, 6890), (3, 1001),
-     (2, 1), (2, 255), (2, 256), (2, 257)],
-)
-def test_backward_kernel_matches_plain(cuda, batch, num_verts):
-    w, tfms, vp = _inputs(batch, num_verts, seed=batch + 3 * num_verts, device=cuda)
-    g = torch.randn(batch, num_verts, 3, device=cuda)
-    before = skinning_backward.launches
-    gv, ga = skinning_backward(w, tfms, vp, g)
+def _backward_inputs(batch, num_verts, seed, device):
+    w, tfms, vp = _inputs(batch, num_verts, seed=seed, device=device)
+    g = torch.from_numpy(
+        np.random.RandomState(seed + 1).randn(batch, num_verts, 3).astype(np.float32)
+    ).to(device)
+    return w, tfms, vp, g
+
+
+def _check_backward(kernel, args, ref_args=None):
+    """One launch, both gradients within the bar of the plain version on
+    `ref_args` (default `args`), row 3 zero, and a second call
+    bit-identical (no atomics)."""
+    fn = BACKWARD_KERNELS[kernel]
+    before = fn.launches
+    gv, ga = fn(*args)
     torch.cuda.synchronize()
-    assert skinning_backward.launches == before + 1
-    rv, ra = skinning_backward_reference(w, tfms, vp, g)
+    assert fn.launches == before + 1
+    rv, ra = skinning_backward_reference(*(ref_args or args))
     _backward_close(gv, rv)
     _backward_close(ga, ra)
     assert bool((ga[:, :, 3] == 0).all())
-    gv2, ga2 = skinning_backward(w, tfms, vp, g)
-    assert torch.equal(gv, gv2) and torch.equal(ga, ga2)  # no atomics: bit-identical
+    gv2, ga2 = fn(*args)
+    assert torch.equal(gv, gv2) and torch.equal(ga, ga2)
+
+
+# The batches the paths launch the kernels with, and the edges of both
+# kernels' tiles: the 16-vertex warp slices and 128-vertex tiles of the
+# 3xTF32 kernel, the 256-vertex chunks of the fp32-FMA one, odd sample
+# counts (a pair with one sample) and groups of samples at 64 and 128.
+BACKWARD_SHAPES = sorted(
+    {(128, 6890), (64, 6890), (16, 6890), (8, 6890), (2, 6890), (1, 6890), (3, 1001)}
+    | {(b, v) for b in (1, 2, 31, 33, 64, 128)
+       for v in (1, 127, 128, 129, 255, 256, 257, 1001, 6890)}
+)
+
+
+@pytest.mark.parametrize("batch,num_verts", BACKWARD_SHAPES)
+@pytest.mark.parametrize("kernel", sorted(BACKWARD_KERNELS))
+def test_backward_kernel_matches_plain(cuda, kernel, batch, num_verts):
+    _check_backward(kernel, _backward_inputs(batch, num_verts, 5 * batch + num_verts, cuda))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("kernel", sorted(BACKWARD_KERNELS))
+def test_backward_kernels_take_any_float_alignment(cuda, kernel, offset):
+    """Contiguous views that start 4, 8 or 12 bytes past a 16-byte line."""
+    args = _backward_inputs(5, 300, seed=offset, device=cuda)
+    shifted = []
+    for a in args:
+        base = torch.empty(a.numel() + 4, device=cuda)
+        view = base[offset:offset + a.numel()].view(a.shape)
+        view.copy_(a)
+        shifted.append(view)
+    assert all(v.data_ptr() % 16 == 4 * offset for v in shifted)
+    _check_backward(kernel, shifted, ref_args=args)
 
 
 def test_skinning_autograd_on_the_card_runs_the_backward_kernel(cuda):
@@ -178,10 +222,12 @@ def test_skinning_autograd_on_the_card_runs_the_backward_kernel(cuda):
     vp.requires_grad_(True)
     g = torch.randn(4, 6890, 3, device=cuda)
     fwd, bwd = skinning.launches, skinning_backward.launches
+    bwd_simt = skinning_backward_simt.launches
     out = skinning(w, tfms, vp)
     ga, gv = torch.autograd.grad(out, (tfms, vp), g)
     torch.cuda.synchronize()
     assert (skinning.launches, skinning_backward.launches) == (fwd + 1, bwd + 1)
+    assert skinning_backward_simt.launches == bwd_simt
     ra, rv = torch.autograd.grad(
         skinning_reference(w, tfms, vp), (tfms, vp), g
     )
@@ -189,17 +235,21 @@ def test_skinning_autograd_on_the_card_runs_the_backward_kernel(cuda):
     _backward_close(gv, rv)
 
 
-def test_backward_refuses_what_the_kernel_does_not_take(cuda):
+@pytest.mark.parametrize("kernel", sorted(BACKWARD_KERNELS))
+def test_backward_refuses_what_the_kernel_does_not_take(cuda, kernel):
+    fn = BACKWARD_KERNELS[kernel]
     w, tfms, vp = _inputs(2, 64, seed=0, device=cuda)
     g = torch.randn(2, 64, 3, device=cuda)
+    before = fn.launches
     with pytest.raises(TypeError):
-        skinning_backward(w, tfms, vp, g.double())
+        fn(w, tfms, vp, g.double())
     with pytest.raises(ValueError, match="contiguous"):
-        skinning_backward(w, tfms, vp, g.transpose(0, 1).contiguous().transpose(0, 1))
+        fn(w, tfms, vp, g.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="one CUDA device"):
-        skinning_backward(w, tfms, vp, g.cpu())
+        fn(w, tfms, vp, g.cpu())
     with pytest.raises(ValueError, match="expected"):
-        skinning_backward(w, tfms, vp, g[:, :32].contiguous())
+        fn(w, tfms, vp, g[:, :32].contiguous())
+    assert fn.launches == before
 
 
 def test_smpl_forward_launches_the_kernel_once(cuda):
@@ -408,9 +458,11 @@ def test_full_width_train_step_on_the_card(cuda):
     step = make_train_step(model, optimizer, LossConfig(keypoint2d_noncrop=True))
     before = model.head.fc1.weight.detach().clone()
     fwd, bwd = skinning.launches, skinning_backward.launches
+    bwd_simt = skinning_backward_simt.launches
     metrics = step(batch, smpl)
     torch.cuda.synchronize()
     assert (skinning.launches - fwd, skinning_backward.launches - bwd) == (2, 1)
+    assert skinning_backward_simt.launches == bwd_simt
     for key, value in metrics.items():
         if not key.startswith("_"):
             assert bool(torch.isfinite(value).all()), key

@@ -389,7 +389,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "poco_tpu"}
 
 
 def _port_sources():
-    return sorted((REPO / "poco_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "poco_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "ablate_skinning_backward.py"
+    ]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -409,7 +411,7 @@ def test_port_source_imports_nothing_of_jax(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
-        "import poco_tpu_torch, chip_smoke\n"
+        "import poco_tpu_torch, chip_smoke, ablate_skinning_backward\n"
         "for m in pkgutil.walk_packages(poco_tpu_torch.__path__, 'poco_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"

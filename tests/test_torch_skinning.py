@@ -13,11 +13,17 @@ residual, three products summed in fp32) and the register epilogue
 references at the same atol; and one TF32 product is shown to miss it.
 
 The backward's plain version (`skinning_backward_reference`, which the
-backward kernel is held to on the card) is compared with torch autograd
+backward kernels are held to on the card) is compared with torch autograd
 and with jax.vjp of the JAX einsum path, and the SMPL forward's
 gradients with respect to betas and rotations with jax.grad, at atol
-1e-5.
+1e-5. The backward kernel's arithmetic (`csrc/skinning_backward.cu`:
+both products as 3xTF32, per-warp and per-tile partial sums, the
+fixed-order cross-tile sum) is emulated in numpy and held to jax.vjp
+within the card's bar, 1e-5 x max |ref| + 1e-7; one TF32 product is
+shown to miss that bar on both gradients.
 """
+
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +39,7 @@ from poco_tpu_torch.ops.skinning import (
     skinning,
     skinning_backward,
     skinning_backward_reference,
+    skinning_backward_simt,
     skinning_reference,
     skinning_simt,
 )
@@ -323,3 +330,134 @@ def test_lbs_gradients_match_jax_grad(monkeypatch, through):
     gb, gr = torch.autograd.grad(loss, (tb, tr))
     np.testing.assert_allclose(gb.numpy(), np.asarray(jb), atol=GRAD_ATOL, rtol=0)
     np.testing.assert_allclose(gr.numpy(), np.asarray(jr), atol=GRAD_ATOL, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# the backward kernel's arithmetic, emulated
+# --------------------------------------------------------------------------
+
+BACKWARD_RTOL, BACKWARD_ATOL = 1e-5, 1e-7  # the card's bar (chip_smoke.py)
+TILE, WARP_ROWS = 128, 16                    # vertices a block, a warp
+
+
+def _split_rna(x):
+    """big + small, both rounded with cvt.rna (W and E in the kernel)."""
+    big = _tf32_round(x)
+    return big, _tf32_round(x - big)
+
+
+def _backward_emulation(w, tfms, vp, g, products=3):
+    """`csrc/skinning_backward.cu` in float32: the blend T = W A' (W split
+    with cvt.rna twice, the transforms' rows 0-2 into a rounded big part
+    and a truncated residual), grad_v_posed[y] = (T0y g0 + T1y g1) + T2y g2;
+    E[v] = g[v] (x) [v_posed[v], 1] split with cvt.rna twice, each warp's
+    16 vertices reduced by E^T W as three products, the 8 warps' partials
+    added in order, and the tiles' partials added as four interleaved
+    running sums, then (s0 + s1) + (s2 + s3). `products=1` keeps only
+    big x big in both products."""
+    batch, num_verts = vp.shape[:2]
+    a = np.ascontiguousarray(tfms[:, :, :3, :3])               # (B, 24, x, y)
+    w_big, w_small = _split_rna(w)
+    a_big = _tf32_round(a)
+    t = np.einsum("vj,bjxy->bvxy", w_big, a_big)
+    if products == 3:
+        a_small = _tf32_truncate(a - a_big)
+        t = (np.einsum("vj,bjxy->bvxy", w_small, a_big)
+             + np.einsum("vj,bjxy->bvxy", w_big, a_small)) + t
+    t = t.astype(np.float32)
+    grad_vp = (t[:, :, 0] * g[..., 0:1] + t[:, :, 1] * g[..., 1:2]) + t[:, :, 2] * g[..., 2:3]
+
+    tiles = -(-num_verts // TILE)
+    pad = tiles * TILE - num_verts
+    homog = np.concatenate([vp, np.ones_like(vp[..., :1])], axis=-1)
+    e = (g[..., :, None] * homog[..., None, :]).reshape(batch, num_verts, 12)
+    e = np.pad(e, ((0, 0), (0, pad), (0, 0))).reshape(batch, tiles, 8, WARP_ROWS, 12)
+    wp = np.pad(w, ((0, pad), (0, 0))).reshape(tiles, 8, WARP_ROWS, 24)
+    e_big, e_small = _split_rna(e)
+    wp_big, wp_small = _split_rna(wp)
+    prod = "btwue,twuj->btwje"
+    warp_part = np.einsum(prod, e_big, wp_big)
+    if products == 3:
+        warp_part = (np.einsum(prod, e_small, wp_big)
+                     + np.einsum(prod, e_big, wp_small)) + warp_part
+    warp_part = warp_part.astype(np.float32)
+    tile_part = warp_part[:, :, 0]
+    for k in range(1, 8):
+        tile_part = tile_part + warp_part[:, :, k]
+    sums = [np.zeros_like(tile_part[:, 0]) for _ in range(4)]
+    for c in range(tiles):
+        sums[c % 4] = sums[c % 4] + tile_part[:, c]
+    rows = ((sums[0] + sums[1]) + (sums[2] + sums[3])).reshape(batch, 24, 3, 4)
+    grad_tfms = np.concatenate([rows, np.zeros_like(rows[:, :, :1])], axis=2)
+    return grad_vp.astype(np.float32), grad_tfms.astype(np.float32)
+
+
+def _backward_case(batch, num_verts, seed):
+    w, tfms, vp = _inputs(batch, num_verts, seed=seed)
+    g = (0.1 * np.random.RandomState(seed + 1).randn(batch, num_verts, 3)).astype(np.float32)
+    return w, tfms, vp, g
+
+
+def _within_bar(got, ref):
+    """The largest error over the card's bar, 1e-5 x max |ref| + 1e-7."""
+    return float(np.abs(got - ref).max()) / (BACKWARD_RTOL * float(np.abs(ref).max())
+                                             + BACKWARD_ATOL)
+
+
+@pytest.mark.parametrize("batch,num_verts", [(2, 6890), (2, 1001), (2, TILE + 1)])
+def test_backward_kernel_arithmetic_matches_jax_vjp(batch, num_verts):
+    """The emulated kernel against jax.vjp of the JAX einsum path
+    (poco_tpu/smpl/lbs.py:177-186), both gradients within 1e-5 x max
+    |ref| + 1e-7, with row 3 of grad_rel_tfms exactly 0: at the main
+    path's V, a V that is no multiple of the tile, and one past a tile."""
+    w, tfms, vp, g = _backward_case(batch, num_verts, seed=num_verts + 31)
+    _, vjp = jax.vjp(
+        lambda a, v: _jax_einsum_skinning(jnp.asarray(w), a, v), jnp.asarray(tfms), jnp.asarray(vp)
+    )
+    ref_tfms, ref_vp = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    got_vp, got_tfms = _backward_emulation(w, tfms, vp, g)
+    assert _within_bar(got_vp, ref_vp) <= 1.0
+    assert _within_bar(got_tfms, ref_tfms) <= 1.0
+    assert not got_tfms[:, :, 3].any()
+
+
+def _float64_backward(w, tfms, vp, g):
+    grads = skinning_backward_reference(
+        *(torch.from_numpy(x.astype(np.float64)) for x in (w, tfms, vp, g))
+    )
+    return [x.numpy() for x in grads]
+
+
+@pytest.mark.parametrize("which", ["grad_v_posed", "grad_rel_tfms"])
+def test_one_tf32_product_misses_the_backward_bar(which):
+    """Why the backward kernel splits: at B=2, V=6890, one TF32 product
+    misses the card's bar against float64 several times over on each
+    gradient (about 18x and 39x here), while the 3xTF32 split lands inside it."""
+    case = _backward_case(2, 6890, seed=41)
+    exact = _float64_backward(*case)[("grad_v_posed", "grad_rel_tfms").index(which)]
+    index = ("grad_v_posed", "grad_rel_tfms").index(which)
+    one = _backward_emulation(*case, products=1)[index]
+    three = _backward_emulation(*case)[index]
+    assert _within_bar(one, exact) > 4.0
+    assert _within_bar(three, exact) < 1.0
+
+
+def test_backward_simt_wrapper_on_cpu_takes_plain_version_without_counting():
+    args = [torch.from_numpy(a) for a in _inputs(2, 50, seed=13)]
+    g = torch.randn(2, 50, 3)
+    before = skinning_backward_simt.launches
+    out = skinning_backward_simt(*args, g)
+    assert skinning_backward_simt.launches == before
+    for a, b in zip(out, skinning_backward_reference(*args, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_backward_ablation_script_needs_a_card(monkeypatch, capsys):
+    """`ablate_skinning_backward.py` builds nothing and exits 1 without a
+    CUDA device."""
+    import ablate_skinning_backward as ablate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["ablate_skinning_backward.py"])
+    assert ablate.main() == 1
+    assert "no CUDA device" in capsys.readouterr().err
