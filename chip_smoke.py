@@ -49,12 +49,36 @@ Phases, each of which raises (exit code 1) on failure:
      group's gradient within 1e-3 relative L2, or 3 x the CPU's own fp32
      distance from float64 where fp32 cannot do better); the loss falls
      over 13 steps on one batch; step ms and crops/s over 10 steps after 3;
+     then POCO-PARE (configs/poco_pare.yaml, phase 4b's weights): card
+     against CPU at batch 2 the same way, and 13 steps at batch 64 on one
+     device-side batch (2 + 1 launches a step, finite loss terms, step ms);
+  4g. real images: the port's loader (`poco_tpu_torch/runtime/loader.py`)
+     is built and prints its route (libjpeg, or nvJPEG where the host has
+     no libjpeg); the 48 smoke JPEGs (`data/dataset_folders/smoke/`)
+     decode within 2 grey levels of cv2's 16x16 area-mean thumbnails
+     (means within 0.5; `tests/data/torch_smoke_thumbs.npz`, made on a
+     host with OpenCV); `PocoDataset.get_batch` over smoke_train.npz with
+     augmentation equals the per-item path (crops within 1e-5, every other
+     key exact); synthetic occlusion changes pixels only under the pasted
+     occluders; `python -m poco_tpu_torch.cli.train` (configs/
+     tiny_smoke.yaml, one epoch) and `cli.eval` of its checkpoint over the
+     smoke JPEGs, and at full width `cli.eval` of POCO-CLIFF (batch 8,
+     random weights) and `Trainer.fit` of POCO-CLIFF from configs/
+     poco_cliff.yaml on smoke_train (batch 16, 2 epochs, validation on
+     smoke_test): finite losses, reports with summary / splits /
+     per_joint, and each run's kernel launches; the loader's crops/s at
+     batch 64 on the smoke JPEGs and on a 1920x1080 JPEG
+     (`tests/data/torch_fullhd.jpg`), the POCO-CLIFF train step alone
+     and with a loader thread decoding full-HD batches beside it, and a
+     `Trainer.fit` of POCO-CLIFF at batch 64 over crops of that JPEG (the
+     trainer's crops/s, the loader in the loop);
   5. crops/s at batch 128, fp32: POCO-CLIFF with the kernel and, in turns,
      with the plain skinning in its place (the yardstick); POCO-PARE with
      the kernel;
   6. a torch.profiler trace of 128-crop requests of POCO-CLIFF and of
      POCO-PARE, of POCO-CLIFF's eval step on a batch of 64 with flip-TTA
-     off and on, and of one POCO-CLIFF train step at batch 64: device busy
+     off and on, of one train step at batch 64 of each POCO model, and of
+     the POCO-CLIFF step with the loader decoding beside it: device busy
      and idle share, the skinning kernels' share, the top device kernels,
      the eval and train steps' device time by stage (their `EVAL_STAGES`
      and `TRAIN_STAGES` profiler ranges); and the SMPL stage alone with the
@@ -66,10 +90,10 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4f). The
+The yardsticks never launch on the main paths (checked in 4-4g). The
 line before the last is the kernels' JSON record (`skinning`,
 `skinning_simt`, `skinning_backward`, `skinning_backward_simt`,
-launches summed over phases 4-4f); the last line is
+launches summed over phases 4-4g); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -82,6 +106,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -93,13 +118,17 @@ import numpy as np
 import torch
 from torch.utils.data import Subset
 
+from poco_tpu_torch.cli import eval as cli_eval
+from poco_tpu_torch.cli import train as cli_train
 from poco_tpu_torch.config import model_config_from_hparams, update_hparams
 from poco_tpu_torch.constants import (
     IMG_NORM_STD,
     PW3D_OCCLUDED_SEQUENCES,
     PW3D_TEST_SEQUENCES,
 )
-from poco_tpu_torch.data.dataset import calculate_bbox_info_np, collate
+from poco_tpu_torch.data import occlusion
+from poco_tpu_torch.data.dataset import PocoDataset, calculate_bbox_info_np, collate
+from poco_tpu_torch.data.transforms import affine_output_to_source
 from poco_tpu_torch.demo.tester import detect_forward
 from poco_tpu_torch.eval import metrics as eval_metrics
 from poco_tpu_torch.eval import runner as eval_runner
@@ -122,6 +151,7 @@ from poco_tpu_torch.ops.skinning import (
     skinning_reference,
     skinning_simt,
 )
+from poco_tpu_torch.runtime import loader as image_loader
 from poco_tpu_torch.smpl import lbs as lbs_module
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.smpl.lbs import smpl_forward
@@ -323,9 +353,11 @@ def cold_ms(fn, sets, calls: int = 40) -> float:
 # every batch size the main paths launch `skinning` with (the launch
 # layout, `group_size` in csrc/skinning.cu, depends on it): requests of
 # 128, 8, 1, card-vs-CPU checks of 2, eval batches of 64 and 16, train
-# steps of 64 (and `skinning_backward` there)
-SKIN_SHAPES = ((128, 6890), (64, 6890), (16, 6890), (8, 6890), (2, 6890), (1, 6890),
-               (3, 1001))
+# steps of 64 (and `skinning_backward` there); phase 4g's tiny_smoke
+# training and validation at 4, its full-width eval at 8 and its
+# full-width fit at 16 (the smoke sets hold 16 samples: no ragged batch)
+SKIN_SHAPES = ((128, 6890), (64, 6890), (16, 6890), (8, 6890), (4, 6890), (2, 6890),
+               (1, 6890), (3, 1001))
 
 
 KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
@@ -1097,8 +1129,8 @@ class SyntheticTrainSet:
         }
 
 
-def train_hparams(logdir: str):
-    hparams = update_hparams(str(REPO / "configs/poco_cliff.yaml"))
+def train_hparams(logdir: str, config: str = "configs/poco_cliff.yaml"):
+    hparams = update_hparams(str(REPO / config))
     hparams.LOG_DIR = logdir
     hparams.TRAINING.MAX_EPOCHS = 1
     hparams.TRAINING.LOG_SAVE_INTERVAL = 1   # every step's loss terms in metrics.jsonl
@@ -1219,7 +1251,7 @@ def train_card_vs_cpu(trainer, data) -> None:
           f"{worst[0]:.3f} of it")
 
 
-def phase_train(ctx: dict, seed: int, card: str) -> dict:
+def phase_train(ctx: dict, pare: dict, seed: int, card: str) -> dict:
     """Training at full width: POCO-CLIFF through `Trainer.fit` for one
     epoch of TRAIN_STEPS steps at the config's batch, validation on
     TRAIN_VAL_SAMPLES samples, resume from `last`, card against CPU, step
@@ -1312,9 +1344,20 @@ def phase_train(ctx: dict, seed: int, card: str) -> dict:
     torch.cuda.empty_cache()
 
     train_card_vs_cpu(trainer, data)
-
-    # step time: one batch, 3 warm-up and 10 timed steps; the loss must fall
     step = make_train_step(trainer.model, trainer.optimizer, trainer.loss_cfg)
+    ts = time_train_step("POCO-CLIFF", step, batch, smpl, card)
+    trainer.close()
+    pare_step, pare_launches = train_pare(ctx, pare, data, host, card)
+    return {"counts": launches, "pare_counts": pare_launches,
+            "run_step": lambda: step(batch, smpl), "run_pare_step": pare_step,
+            "step_crops_per_s": batch_size / statistics.median(ts), "tmp": tmp}
+
+
+def time_train_step(label: str, step, batch: dict, smpl, card: str) -> list[float]:
+    """One batch, 3 warm-up and 10 timed steps: every metric finite, the
+    loss falling; prints the median step time with min and max and
+    returns the timed steps' seconds."""
+    batch_size = len(batch["img"])
     totals, times = [], []
     for i in range(13):
         torch.cuda.synchronize()
@@ -1324,18 +1367,422 @@ def phase_train(ctx: dict, seed: int, card: str) -> dict:
         times.append(time.perf_counter() - t0)
         totals.append(float(metrics["loss/total_loss"]))
         check(all(math.isfinite(float(v)) for k, v in metrics.items() if not k.startswith("_")),
-              f"overfit step {i}: not finite")
-    print(f"overfitting one batch of {batch_size}: total loss {[round(t, 4) for t in totals]}")
-    check(totals[-1] < totals[0], "train: the loss did not fall over 13 steps on one batch")
+              f"{label} overfit step {i}: not finite")
+    print(f"{label} overfitting one batch of {batch_size}: total loss "
+          f"{[round(t, 4) for t in totals]}")
+    check(totals[-1] < totals[0], f"{label}: the loss did not fall over 13 steps on one batch")
     ts = times[3:]
     med = statistics.median(ts)
-    print(f"train step fp32, batch {batch_size}, POCO-CLIFF, {len(ts)} steps after 3 warm-up: "
+    print(f"train step fp32, batch {batch_size}, {label}, {len(ts)} steps after 3 warm-up: "
           f"median {med * 1e3:.3f} ms (min {min(ts) * 1e3:.3f}, max {max(ts) * 1e3:.3f}) = "
           f"{batch_size / med:.1f} crops/s (min {batch_size / max(ts):.1f}, max "
           f"{batch_size / min(ts):.1f}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
-    trainer.close()
-    return {"counts": launches, "run_step": lambda: step(batch, smpl), "tmp": tmp}
+    return ts
+
+
+def train_pare(ctx: dict, pare: dict, data, host: dict, card: str):
+    """POCO-PARE's train step (configs/poco_pare.yaml, phase 4b's weights)
+    at the config's batch on one device-side batch of phase 4f's samples:
+    card against CPU at batch 2 (`train_card_vs_cpu`), then 13 steps, each
+    launching `skinning` twice and `skinning_backward` once. Returns the
+    step (for the profile) and the timed steps' launches."""
+    import tempfile
+
+    from poco_tpu_torch.train.step import make_train_step
+    from poco_tpu_torch.train.trainer import Trainer
+
+    print("== 4f. training at full width: POCO-PARE train step")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pare_") as logdir:
+        hparams = train_hparams(logdir, "configs/poco_pare.yaml")
+        check(hparams.DATASET.BATCH_SIZE == len(host["img"]),
+              f"configs/poco_pare.yaml trains at batch {hparams.DATASET.BATCH_SIZE}")
+        trainer = Trainer(hparams, ctx["smpl"], train_dataset_fn=lambda epoch: data,
+                          device="cuda")
+        trainer.close()
+    trainer.model.load_state_dict(pare["model"].state_dict())
+    print(f"config: {trainer.model.cfg}; loss: {trainer.loss_cfg}")
+    train_card_vs_cpu(trainer, data)
+    batch = trainer._device_batch(host)
+    step = make_train_step(trainer.model, trainer.optimizer, trainer.loss_cfg)
+    reset_counts()
+    time_train_step("POCO-PARE", step, batch, ctx["smpl"], card)
+    launches = read_counts("train POCO-PARE")
+    print(f"POCO-PARE train steps: launches {dict(launches)}")
+    check((launches["skinning"], launches["skinning_backward"])
+          == tuple(13 * n for n in TRAIN_LAUNCHES),
+          "train POCO-PARE: each step must launch skinning 2 and skinning_backward 1 times")
+    return (lambda: step(batch, ctx["smpl"])), launches
+
+
+SMOKE_DIR = REPO / "data" / "dataset_folders" / "smoke"
+THUMBS_NPZ = REPO / "tests" / "data" / "torch_smoke_thumbs.npz"
+FULLHD_JPEG = REPO / "tests" / "data" / "torch_fullhd.jpg"
+THUMB_SIZE = 16
+THUMB_TOL = 2.0    # grey levels, a thumbnail pixel against cv2.imread's (IDCTs differ)
+MEAN_TOL = 0.5     # grey levels, an image's channel mean against cv2.imread's
+GET_BATCH_TOL = 1e-5  # crops of get_batch against the per-item path
+LOADER_BATCH = 64  # the training batch
+
+
+def smoke_thumbnails(read) -> dict:
+    """Per smoke JPEG (sorted by name), read by `read(path)` as (H, W, 3)
+    RGB uint8: its channel means and its THUMB_SIZE x THUMB_SIZE area-mean
+    thumbnail, both float64. `tests/data/torch_smoke_thumbs.npz` holds
+    them for `cv2.imread`, the thumbnails rounded to uint8."""
+    names, means, thumbs = [], [], []
+    for path in sorted(SMOKE_DIR.glob("*.jpg")):
+        img = read(str(path)).astype(np.float64)
+        h, w = img.shape[:2]
+        names.append(path.name)
+        means.append(img.mean(axis=(0, 1)))
+        thumbs.append(img.reshape(THUMB_SIZE, h // THUMB_SIZE, THUMB_SIZE, w // THUMB_SIZE, 3)
+                      .mean(axis=(1, 3)))
+    return {"names": np.asarray(names), "means": np.stack(means), "thumbs": np.stack(thumbs)}
+
+
+def host_cpu() -> str:
+    """The host CPU's model (its /proc/cpuinfo name, vendor, family and
+    model numbers) and core count."""
+    fields = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    model = (f"{fields.get('model name', 'unknown')} ({fields.get('vendor_id', '?')} family "
+             f"{fields.get('cpu family', '?')} model {fields.get('model', '?')})")
+    return f"{model}, {os.cpu_count()} cores ({len(os.sched_getaffinity(0))} usable)"
+
+
+def check_report(label: str, report: dict) -> None:
+    check(set(report) == {"summary", "splits", "per_joint"}, f"{label}: report keys {set(report)}")
+    check(all(math.isfinite(v) for v in report["summary"].values()),
+          f"{label}: summary not finite: {report['summary']}")
+    print(f"{label}: summary {json.dumps(report['summary'])}; splits {sorted(report['splits'])}")
+
+
+def logged_losses(logdir: str) -> list[dict]:
+    with open(Path(logdir) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if "step" in r and "loss/total_loss" in r]
+
+
+def loader_crops(paths: list[str], seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded training-style warps (scale, rotation, flip, channel noise)
+    of the middle of each image, for `batch_decode_affine`."""
+    from poco_tpu_torch.data.transforms import sample_augment_params
+
+    rng = np.random.RandomState(seed)
+    affines, gains = [], []
+    for path in paths:
+        h, w = image_loader.image_size(path)
+        aug = sample_augment_params(rng)
+        affines.append(affine_output_to_source(np.array([w / 2, h / 2], np.float32),
+                                               0.6 * min(h, w) * aug.scale, 224, aug.rot,
+                                               aug.flip))
+        gains.append(aug.pixel_noise)
+    return np.stack(affines), np.stack(gains)
+
+
+def loader_throughput(label: str, paths: list[str], card: str, reps: int = 10) -> float:
+    """batch_decode_affine of `paths` (one batch) with its default threads,
+    2 warm-up and `reps` timed calls; returns the median seconds."""
+    affines, gains = loader_crops(paths, seed=len(paths))
+    for _ in range(2):
+        image_loader.batch_decode_affine(paths, affines, gains)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        image_loader.batch_decode_affine(paths, affines, gains)
+        ts.append(time.perf_counter() - t0)
+    med = statistics.median(ts)
+    n = len(paths)
+    print(f"loader batch_decode_affine, batch {n}, {label}, route {image_loader.route()}: median "
+          f"{med * 1e3:.3f} ms (min {min(ts) * 1e3:.3f}, max {max(ts) * 1e3:.3f}) = "
+          f"{n / med:.1f} crops/s, {med / n * 1e3:.3f} ms a crop; host {host_cpu()}; card {card}")
+    return med
+
+
+@contextlib.contextmanager
+def loader_beside(paths: list[str], num_threads: int = 0):
+    """A thread decoding and warping batches of `paths` (on `num_threads`
+    loader threads, 0: one a core) without pause for as long as the
+    context lasts; yields a dict whose "crops" and "seconds" it fills when
+    the context ends."""
+    import threading
+
+    affines, gains = loader_crops(paths, seed=1)
+    stop, stats, errors = threading.Event(), {"crops": 0, "seconds": 0.0}, []
+
+    def run():
+        start = time.perf_counter()
+        try:
+            while not stop.is_set():
+                image_loader.batch_decode_affine(paths, affines, gains, num_threads=num_threads)
+                stats["crops"] += len(paths)
+        except Exception as e:  # raised in the main thread below
+            errors.append(e)
+        stats["seconds"] = time.perf_counter() - start
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        yield stats
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+    check(not thread.is_alive(), "the loader thread did not stop")
+    if errors:
+        raise errors[0]
+
+
+def phase_images(ctx: dict, train: dict, seed: int, card: str) -> dict:
+    """Phase 4g: the loader, the smoke JPEGs through the dataset, the two
+    CLIs and a full-width fit over them, and the loader's throughput on
+    the card's host. Returns each main-path run's launches, and the
+    POCO-CLIFF step with the loader beside it for the profile."""
+    import tempfile
+
+    print("== 4g. real images: the loader, the smoke JPEGs, the CLIs")
+    route = image_loader.route()
+    print(f"loader route={route} png={image_loader.png_available()}")
+
+    # 1. the 48 smoke JPEGs against cv2.imread's thumbnails on a host with OpenCV
+    ref = np.load(THUMBS_NPZ)
+    got = smoke_thumbnails(image_loader.decode_image)
+    check(got["names"].tolist() == ref["names"].tolist(),
+          f"smoke JPEGs {got['names'].tolist()} are not the fixture's")
+    thumb_err = float(np.abs(got["thumbs"] - ref["thumbs"]).max())
+    mean_err = float(np.abs(got["means"] - ref["means"]).max())
+    print(f"{len(got['names'])} smoke JPEGs decoded ({route}): {THUMB_SIZE}x{THUMB_SIZE} "
+          f"thumbnails within {thumb_err:.3f} grey levels of cv2.imread's (tolerance "
+          f"{THUMB_TOL}), channel means within {mean_err:.4f} (tolerance {MEAN_TOL})")
+    check(thumb_err <= THUMB_TOL and mean_err <= MEAN_TOL, "smoke JPEGs disagree with cv2's")
+
+    # 2. get_batch against the per-item path, augmentation on
+    npz = REPO / "data" / "dataset_extras" / "smoke_train.npz"
+    data_dir = str(REPO / "data")
+
+    def smoke_set(**kwargs):
+        return PocoDataset(str(npz), img_dir=data_dir, is_train=True, seed=seed + 41, **kwargs)
+
+    rows = list(range(len(smoke_set())))
+    whole = smoke_set().get_batch(rows)
+    per_item_set = smoke_set()
+    items = collate([per_item_set[i] for i in rows])
+    crop_err = float(np.abs(whole["img"] - items["img"]).max())
+    check(crop_err <= GET_BATCH_TOL, f"get_batch crops differ from the per-item path by {crop_err}")
+    for key, value in items.items():
+        if key != "img":
+            check(np.array_equal(np.asarray(whole[key]), np.asarray(value)),
+                  f"get_batch {key} differs from the per-item path")
+    print(f"get_batch of {len(rows)} augmented smoke_train rows equals the per-item path: crops "
+          f"within {crop_err:.2e} (tolerance {GET_BATCH_TOL}), {len(items) - 1} other keys "
+          f"exact; rotated {int((items['rot_angle'] != 0).sum())}, flipped "
+          f"{int(items['is_flipped'].sum())}")
+
+    # 3. synthetic occlusion changes pixels only under the pasted occluders
+    options = {"USE_SYNTHETIC_OCCLUSION": True}
+    occluded_set = smoke_set(options=options, occluders=occlusion.synthetic_occluders(seed=seed))
+    footprints = []
+    paste = occlusion.paste_over
+
+    def recording_paste(src, dst, center):
+        probe = np.zeros(dst.shape, np.float32)
+        white = src.copy()
+        white[..., :3] = 255
+        paste(white, probe, center)
+        footprints[-1] |= probe.any(axis=-1)
+        paste(src, dst, center)
+
+    occlude = occluded_set._occlude
+
+    def recording_occlude(crop, kp2d, scale):
+        footprints.append(np.zeros(crop.shape[:2], bool))
+        return occlude(crop, kp2d, scale)
+
+    occlusion.paste_over = recording_paste
+    occluded_set._occlude = recording_occlude
+    try:
+        occluded = occluded_set.get_batch(rows)
+    finally:
+        occlusion.paste_over = paste
+    changed = (occluded["img"] != whole["img"]).any(axis=-1)
+    check(len(footprints) == len(rows), f"occlusion ran on {len(footprints)} of {len(rows)} rows")
+    outside = int((changed & ~np.stack(footprints)).sum())
+    check(outside == 0, f"occlusion changed {outside} pixels outside the occluders")
+    check(changed.any(), "occlusion changed no pixel")
+    for key, value in whole.items():
+        if key != "img":
+            check(np.array_equal(np.asarray(occluded[key]), np.asarray(value)),
+                  f"occlusion changed {key}")
+    print(f"synthetic occlusion: {int(changed.sum())} pixels changed in {int(changed.any((1, 2)).sum())}"
+          f" of {len(rows)} crops, all under the occluders ({int(np.stack(footprints).sum())} "
+          f"pixels); every other key unchanged")
+
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_images_") as tmp:
+        # 4. the CLIs at tiny width over the smoke JPEGs
+        tiny = str(REPO / "configs" / "tiny_smoke.yaml")
+        logdir = str(Path(tmp) / "tiny")
+        reset_counts()
+        cli_train.main(["--cfg", tiny, "--logdir", logdir, "--max_epochs", "1",
+                        "--data_dir", data_dir])
+        counts["cli_train"] = read_counts("cli.train tiny_smoke")
+        losses = logged_losses(logdir)
+        steps = len(losses)
+        check(steps > 0 and all(math.isfinite(v) for r in losses for k, v in r.items()
+                                if k.startswith("loss/")), f"cli.train: losses {losses}")
+        n_val = math.ceil(16 / 4) * EVAL_LAUNCHES[False]
+        print(f"cli.train tiny_smoke: {steps} steps, total loss "
+              f"{[round(r['loss/total_loss'], 4) for r in losses]}; launches "
+              f"{dict(counts['cli_train'])}")
+        check(counts["cli_train"]["skinning_backward"] == steps
+              and counts["cli_train"]["skinning"] == 2 * steps + n_val,
+              "cli.train: each step must launch skinning 2 and skinning_backward 1 times, "
+              "each validation batch skinning 5")
+        reset_counts()
+        report = cli_eval.main(["--cfg", tiny, "--ckpt", logdir, "--dataset", "smoke",
+                                "--data_dir", data_dir, "--out", str(Path(tmp) / "tiny.json")])
+        counts["cli_eval"] = read_counts("cli.eval tiny_smoke")
+        check_report("cli.eval tiny_smoke", report)
+        check(counts["cli_eval"]["skinning"] == EVAL_LAUNCHES[False],
+              f"cli.eval tiny_smoke: launches {dict(counts['cli_eval'])}")
+
+        # 5. full width: cli.eval of POCO-CLIFF, and Trainer.fit on smoke_train
+        cliff = str(REPO / "configs" / "poco_cliff.yaml")
+        reset_counts()
+        report = cli_eval.main(["--cfg", cliff, "--dataset", "smoke", "--data_dir", data_dir,
+                                "--batch_size", "8", "--out", str(Path(tmp) / "cliff.json")])
+        counts["cli_eval_cliff"] = read_counts("cli.eval POCO-CLIFF")
+        check_report("cli.eval POCO-CLIFF, batch 8", report)
+        check(counts["cli_eval_cliff"]["skinning"] == 2 * EVAL_LAUNCHES[False],
+              f"cli.eval POCO-CLIFF: launches {dict(counts['cli_eval_cliff'])}")
+
+        from poco_tpu_torch.train.trainer import Trainer
+
+        hparams = train_hparams(str(Path(tmp) / "cliff"))
+        hparams.DATASET.DATA_DIR = data_dir
+        hparams.DATASET.TRAIN_DS = "all"
+        hparams.DATASET.DATASETS_AND_RATIOS = "smoke_1.0"
+        hparams.DATASET.VAL_DS = "smoke"
+        hparams.DATASET.BATCH_SIZE = 16
+        hparams.TRAINING.MAX_EPOCHS = 2
+        train_fn, val = cli_train.build_datasets(hparams)
+        trainer = Trainer(hparams, ctx["smpl"], train_dataset_fn=train_fn, val_dataset=val,
+                          device="cuda")
+        trainer.model.load_state_dict(ctx["model"].state_dict())
+        steps, fit_losses = [], []
+        counted_steps(trainer, steps, fit_losses)
+        reset_counts()
+        start = time.perf_counter()
+        summary = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - start
+        counts["fit_cliff"] = read_counts("Trainer.fit POCO-CLIFF smoke")
+        trainer.close()
+        del trainer
+        print(f"Trainer.fit POCO-CLIFF on smoke_train, batch 16, 2 epochs: {len(steps)} steps and"
+              f" validation in {fit_s:.3f} s; total loss "
+              f"{[round(t['loss/total_loss'], 4) for t in fit_losses]}; launches "
+              f"{dict(counts['fit_cliff'])}; validation {json.dumps(summary)}")
+        check(len(steps) == 2 and all(c == TRAIN_LAUNCHES for c in steps),
+              f"Trainer.fit smoke: per-step launches {steps}")
+        check(counts["fit_cliff"]["skinning"] == 2 * TRAIN_LAUNCHES[0] + 2 * EVAL_LAUNCHES[False],
+              "Trainer.fit smoke: validation must launch skinning 5 times a batch")
+        check(all(math.isfinite(v) for t in fit_losses for v in t.values()), "fit: loss")
+        check(all(math.isfinite(v) for v in summary.values()), f"fit validation: {summary}")
+    torch.cuda.empty_cache()
+
+    # 6. the loader's throughput on this host, and beside the train step
+    smoke_paths = sorted(str(p) for p in SMOKE_DIR.glob("*.jpg"))
+    smoke_batch = (smoke_paths * 2)[:LOADER_BATCH]
+    fullhd = [str(FULLHD_JPEG)] * LOADER_BATCH
+    h, w = image_loader.image_size(str(FULLHD_JPEG))
+    check((h, w) == (1080, 1920), f"{FULLHD_JPEG} is {h}x{w}")
+    loader_throughput("smoke JPEGs 256x256", smoke_batch, card)
+    fullhd_s = loader_throughput("one 1920x1080 JPEG", fullhd, card)
+    print(f"beside it: the POCO-CLIFF train step at batch 64 takes "
+          f"{train['step_crops_per_s']:.1f} crops/s (phase 4f)")
+    run_step = train["run_step"]
+    half = max(1, len(os.sched_getaffinity(0)) // 2)
+    threads = {"alone": None, "loader": 0, f"loader on {half} threads": half}
+    times = {turn: [] for turn in threads}
+    loaded = {turn: [] for turn in threads}
+    for turn in (*threads, *reversed(threads)):
+        with contextlib.ExitStack() as stack:
+            if threads[turn] is not None:
+                loaded[turn].append(stack.enter_context(loader_beside(fullhd, threads[turn])))
+            for i in range(8):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_step()
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times[turn].append(time.perf_counter() - t0)
+    for turn, ts in times.items():
+        med = statistics.median(ts)
+        beside = ("" if threads[turn] is None else
+                  f", full-HD batches decoding beside it at "
+                  f"{sum(s['crops'] for s in loaded[turn]) / sum(s['seconds'] for s in loaded[turn]):.1f}"
+                  f" crops/s ({LOADER_BATCH / fullhd_s:.1f} alone; keeps up with the step: "
+                  f"{sum(s['crops'] for s in loaded[turn]) / sum(s['seconds'] for s in loaded[turn]) >= 64 / med})")
+        print(f"train step fp32, batch 64, POCO-CLIFF, {turn}, {len(ts)} steps in turns: median "
+              f"{med * 1e3:.3f} ms (min {min(ts) * 1e3:.3f}, max {max(ts) * 1e3:.3f}) = "
+              f"{64 / med:.1f} crops/s{beside}; on {card}, host {host_cpu()}")
+    counts["fit_fullhd"] = fit_on_fullhd(ctx, train, seed, card)
+    return {"counts": counts, "fullhd": fullhd}
+
+
+FULLHD_FIT_STEPS = 20
+
+
+def fit_on_fullhd(ctx: dict, train: dict, seed: int, card: str) -> Counter:
+    """Training crops/s with the loader in the loop: `Trainer.fit` of
+    POCO-CLIFF (configs/poco_cliff.yaml, batch 64, phase 4's weights) for
+    FULLHD_FIT_STEPS steps over augmented crops of the 1920x1080 JPEG
+    (seeded boxes, GT pose and 2D keypoints), read by the trainer's
+    DataLoader through `get_batch`: the trainer's own crops/s (its first
+    batch's decode included) beside the step's on a device-side batch.
+    Returns the run's launches."""
+    import tempfile
+
+    from poco_tpu_torch.train.trainer import Trainer
+
+    n = FULLHD_FIT_STEPS * LOADER_BATCH
+    rng = np.random.RandomState(seed + 51)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fullhd_") as tmp:
+        center = np.stack([rng.uniform(660, 1260, n), rng.uniform(390, 690, n)], 1)
+        part = np.concatenate([center[:, None] + rng.uniform(-150, 150, (n, 24, 2)),
+                               np.ones((n, 24, 1))], axis=2)
+        np.savez(Path(tmp) / "fullhd_train.npz", imgname=np.array([FULLHD_JPEG.name] * n),
+                 center=center.astype(np.float32), scale=rng.uniform(2.0, 4.0, n).astype(np.float32),
+                 pose=rng.uniform(-0.3, 0.3, (n, 72)).astype(np.float32),
+                 shape=rng.uniform(-0.5, 0.5, (n, 10)).astype(np.float32),
+                 part=part.astype(np.float32))
+        data = PocoDataset(str(Path(tmp) / "fullhd_train.npz"), img_dir=str(FULLHD_JPEG.parent),
+                           dataset_name="fullhd", is_train=True, seed=seed)
+        hparams = train_hparams(str(Path(tmp) / "run"))
+        trainer = Trainer(hparams, ctx["smpl"], train_dataset_fn=lambda epoch: data,
+                          device="cuda")
+        trainer.model.load_state_dict(ctx["model"].state_dict())
+        steps, losses = [], []
+        counted_steps(trainer, steps, losses)
+        reset_counts()
+        trainer.fit()
+        counts = read_counts("Trainer.fit POCO-CLIFF over full-HD JPEGs")
+        trainer.close()
+        with open(Path(tmp) / "run" / "metrics.jsonl") as f:
+            epoch = [r for r in map(json.loads, f) if r.get("event") == "epoch_end"][-1]
+    check(len(steps) == FULLHD_FIT_STEPS and all(c == TRAIN_LAUNCHES for c in steps),
+          f"Trainer.fit over full-HD JPEGs: per-step launches {steps}")
+    check(all(math.isfinite(v) for t in losses for v in t.values()), "full-HD fit: loss")
+    print(f"Trainer.fit POCO-CLIFF over augmented crops of the 1920x1080 JPEG, batch 64, "
+          f"{len(steps)} steps: the trainer's crops/s {epoch['crops_per_sec']:.1f} (the loader "
+          f"in the loop, its first batch included; the step alone on a device-side batch "
+          f"{train['step_crops_per_s']:.1f}); launches {dict(counts)}; on {card}, host "
+          f"{host_cpu()}")
+    return counts
 
 
 def timed_requests(run, reps: int) -> list[float]:
@@ -1485,11 +1932,15 @@ def profile_request(label: str, run, card: str, stages=EVAL_STAGES) -> None:
                 print(f"  {name:20s} {t / n / 1e3:9.4f} ms = {t / total:.4f}")
 
 
-def phase_profile(ctx: dict, pare: dict, evaluation: dict, train: dict, card: str) -> None:
+def phase_profile(ctx: dict, pare: dict, evaluation: dict, train: dict, images: dict,
+                  card: str) -> None:
     """Where a 128-crop request spends device time (torch.profiler), for
     POCO-CLIFF and POCO-PARE, the SMPL stage alone, one eval step on a
     batch of 64 with flip-TTA off and on, and one train step at batch 64
-    (device-side batches, without the loader)."""
+    of each POCO model (device-side batches, without the loader), and the
+    POCO-CLIFF step again while the loader decodes full-HD batches beside
+    it (its device time then includes the loader's own, on the card's
+    decoder route)."""
     print("== 6. profile: one 128-crop request")
     c, s = ctx["request"]
     smpl = ctx["smpl"]
@@ -1514,6 +1965,11 @@ def phase_profile(ctx: dict, pare: dict, evaluation: dict, train: dict, card: st
         profile_request(f"eval step, POCO-CLIFF, batch 64, flip_test={flip}", run, card)
     profile_request("train step, POCO-CLIFF, batch 64, fp32", train["run_step"], card,
                     stages=TRAIN_STAGES)
+    profile_request("train step, POCO-PARE, batch 64, fp32", train["run_pare_step"], card,
+                    stages=TRAIN_STAGES)
+    with loader_beside(images["fullhd"]):
+        profile_request("train step, POCO-CLIFF, batch 64, fp32, loader beside it",
+                        train["run_step"], card, stages=TRAIN_STAGES)
 
 
 def main() -> int:
@@ -1533,15 +1989,18 @@ def main() -> int:
              "flow": phase_flow(ctx, pare, args.seed), "hmr": phase_hmr(ctx, args.seed)}
     evaluation = phase_eval(ctx, pare, args.seed, card)
     paths["eval"] = evaluation["counts"]
-    train = phase_train(ctx, args.seed, card)
+    train = phase_train(ctx, pare, args.seed, card)
     paths["train"] = train["counts"]
+    paths["train_pare"] = train["pare_counts"]
+    images = phase_images(ctx, train, args.seed, card)
+    paths.update(images["counts"])
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)
     print(f"launches on the main paths: {dict(launches)}; by path "
           f"{ {path: dict(counts) for path, counts in paths.items()} }")
     phase_throughput(ctx, pare, args.reps, card)
-    phase_profile(ctx, pare, evaluation, train, card)
+    phase_profile(ctx, pare, evaluation, train, images, card)
     train["tmp"].cleanup()
     times = phase_kernel_timing(peaks)
     backward_times = phase_backward_timing(peaks)

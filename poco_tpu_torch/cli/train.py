@@ -63,6 +63,30 @@ def build_train_dataset_factory(hparams, options):
     return factory
 
 
+def build_datasets(hparams):
+    """The trainer's datasets from the config: the epoch -> training set
+    factory and the validation set of VAL_DS (None when its npz is
+    missing), both with the DATASET section's augmentation options."""
+    from ..config import dataset_npz_path
+    from ..data.dataset import PocoDataset
+
+    options = {
+        "FLIP": bool(hparams.DATASET.FLIP),
+        "NOISE_FACTOR": hparams.DATASET.NOISE_FACTOR,
+        "ROT_FACTOR": hparams.DATASET.ROT_FACTOR,
+        "SCALE_FACTOR": hparams.DATASET.SCALE_FACTOR,
+        "IMG_RES": hparams.DATASET.IMG_RES,
+        "UNCERT_THRESHOLD": hparams.DATASET.UNCERT_THRESHOLD,
+    }
+    val_npz = dataset_npz_path(hparams.DATASET.DATA_DIR, hparams.DATASET.VAL_DS, is_train=False)
+    val_dataset = (
+        PocoDataset(val_npz, img_dir=hparams.DATASET.DATA_DIR,
+                    dataset_name=hparams.DATASET.VAL_DS, is_train=False, options=options)
+        if os.path.exists(val_npz) else None
+    )
+    return build_train_dataset_factory(hparams, options), val_dataset
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cfg", required=True, help="experiment yaml")
@@ -100,8 +124,7 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ..config import dataset_npz_path, run_grid_search_experiments
-    from ..data.dataset import PocoDataset
+    from ..config import run_grid_search_experiments
     from ..smpl.assets import resolve_smpl_params
     from ..train.trainer import Trainer
 
@@ -110,24 +133,11 @@ def main(argv=None) -> dict:
         hparams.DATASET.DATA_DIR = args.data_dir
     if args.pretrained:
         hparams.TRAINING.PRETRAINED = args.pretrained
-    options = {
-        "FLIP": bool(hparams.DATASET.FLIP),
-        "NOISE_FACTOR": hparams.DATASET.NOISE_FACTOR,
-        "ROT_FACTOR": hparams.DATASET.ROT_FACTOR,
-        "SCALE_FACTOR": hparams.DATASET.SCALE_FACTOR,
-        "IMG_RES": hparams.DATASET.IMG_RES,
-        "UNCERT_THRESHOLD": hparams.DATASET.UNCERT_THRESHOLD,
-    }
-    val_npz = dataset_npz_path(hparams.DATASET.DATA_DIR, hparams.DATASET.VAL_DS, is_train=False)
-    val_dataset = (
-        PocoDataset(val_npz, img_dir=hparams.DATASET.DATA_DIR,
-                    dataset_name=hparams.DATASET.VAL_DS, is_train=False, options=options)
-        if os.path.exists(val_npz) else None
-    )
+    train_dataset_fn, val_dataset = build_datasets(hparams)
     trainer = Trainer(
         hparams,
         resolve_smpl_params(args.smpl_dir, "neutral", device),
-        train_dataset_fn=build_train_dataset_factory(hparams, options),
+        train_dataset_fn=train_dataset_fn,
         val_dataset=val_dataset,
         smpl_male=resolve_smpl_params(args.smpl_dir, "male", device),
         smpl_female=resolve_smpl_params(args.smpl_dir, "female", device),

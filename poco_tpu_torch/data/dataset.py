@@ -5,11 +5,14 @@ Reference contract: pocolib/dataset/base_dataset.py. The npz schema is
 unchanged: imgname, center, scale, and optionally pose (72), shape (10),
 S (24, 4), part (24, 3), openpose (25, 3), gender, has_smpl, person_id,
 var. Items stay numpy, with each crop HWC in [0, 255]; normalization and
-the GT meshes happen on the device, in the eval step. Images are read and
-cropped with OpenCV, imported when an item is read.
+the GT meshes happen on the device, in the eval step. Images are decoded
+and cropped by the port's loader (`runtime/loader.py`, no OpenCV): a
+whole batch at once on its C++ thread pool (`get_batch`, which the
+`DataLoader` uses), or one item at a time through the same decode and
+warp, so both give the same crops. Synthetic occlusion (`occluders=`)
+pastes `data/occlusion.py`'s patches with its own random stream.
 
-Not ported yet: the JAX package's native whole-batch decoder, synthetic
-occlusion and the loader's sharding over processes.
+Not ported yet: the loader's sharding over processes.
 """
 
 from __future__ import annotations
@@ -23,14 +26,16 @@ from typing import Any, Iterator
 import numpy as np
 
 from ..constants import IMG_RES
+from ..runtime import loader
+from . import occlusion
 from .transforms import (
     AugmentParams,
+    affine_output_to_source,
     convert_crop_coords_to_orig_img,
     process_image,
     process_keypoints_2d,
     process_keypoints_3d,
     process_pose,
-    require_cv2,
     sample_augment_params,
 )
 
@@ -63,8 +68,14 @@ class PocoDataset:
         img_dir: image root joined with each imgname.
         is_train: enables augmentation.
         options: augmentation knobs (FLIP, NOISE_FACTOR, ROT_FACTOR,
-            SCALE_FACTOR, UNCERT_THRESHOLD, IMG_RES, TEST_ROT, TEST_SCALE);
-            the defaults mirror config.py.
+            SCALE_FACTOR, UNCERT_THRESHOLD, IMG_RES, TEST_ROT, TEST_SCALE,
+            USE_SYNTHETIC_OCCLUSION, OCC_AUG_DATASET); the defaults mirror
+            config.py.
+        occluders: occluder patches for synthetic occlusion (RGBA arrays
+            from `occlusion.load_pascal_occluders` or
+            `synthetic_occluders`; for OCC_AUG_DATASET "coco", the dict of
+            `load_coco_occluders`), pasted into training crops when
+            USE_SYNTHETIC_OCCLUSION is set.
     """
 
     def __init__(
@@ -77,6 +88,7 @@ class PocoDataset:
         ignore_3d: bool = False,
         num_images: int = 0,
         options: dict | None = None,
+        occluders: list | dict | None = None,
         seed: int = 0,
     ):
         self.img_dir = img_dir
@@ -89,7 +101,12 @@ class PocoDataset:
             TEST_ROT=0.0, TEST_SCALE=1.0,
         )
         self.options.update(options or {})
+        self.occluders = occluders
         self.rng = np.random.RandomState(seed)
+        # occlusion (and the read retry's wait) draw from a stream of their
+        # own, so the per-item path and get_batch, which draws every row's
+        # augmentation first, consume `rng` in the same order
+        self.occ_rng = np.random.RandomState(None if seed is None else seed + 77_003)
 
         data = dict(np.load(npz_file, allow_pickle=True))
         n = len(data["imgname"])
@@ -146,17 +163,15 @@ class PocoDataset:
         return len(self.imgname)
 
     def _load_image(self, index: int) -> np.ndarray:
-        cv2 = require_cv2()
+        """The item's image, (H, W, 3) RGB uint8, through the loader."""
         path = os.path.join(self.img_dir, str(self.imgname[index]))
-        img = cv2.imread(path)
-        if img is None:
+        try:
+            return loader.decode_image(path)
+        except FileNotFoundError:
             # one bounded retry for a transient file-system miss (the
             # reference sleeps 500-1000 s, base_dataset.py:276-283)
-            time.sleep(0.5)
-            img = cv2.imread(path)
-        if img is None:
-            raise FileNotFoundError(path)
-        return img[:, :, ::-1].astype(np.float32)
+            time.sleep(self.occ_rng.uniform(0.5, 1.0))
+            return loader.decode_image(path)
 
     def _sample_aug(self) -> AugmentParams:
         if self.is_train and self.use_augmentation:
@@ -187,6 +202,9 @@ class PocoDataset:
         kp_fullimg = convert_crop_coords_to_orig_img(
             bbox, kp2d[None].copy(), self.options["IMG_RES"]
         )[0]
+        if (self.occluders is not None and self.is_train
+                and self.options.get("USE_SYNTHETIC_OCCLUSION")):
+            crop = self._occlude(crop, kp2d, scale)
         return {
             "img": crop,  # (R, R, 3) float32 [0, 255]; normalized on the device
             "pose": process_pose(self.pose[index], aug),
@@ -209,8 +227,20 @@ class PocoDataset:
             "imgname": str(self.imgname[index]),
         }
 
-    def __getitem__(self, index: int) -> dict[str, Any]:
-        aug = self._sample_aug()
+    def _occlude(self, crop: np.ndarray, kp2d: np.ndarray, scale: float) -> np.ndarray:
+        """Synthetic occlusion of one crop (JAX `_finish_item`): COCO
+        statistics, pastes at random places ("pascal_random") or near the
+        visible keypoints (default)."""
+        kind = str(self.options.get("OCC_AUG_DATASET", "pascal"))
+        if kind == "coco":
+            return occlusion.occlude_with_coco_objects(
+                crop, kp2d, self.occluders, self.occ_rng, img_size=self.options["IMG_RES"])
+        if kind == "pascal_random":
+            return occlusion.occlude_with_objects(crop, self.occluders, self.occ_rng)
+        return occlusion.occlude_with_objects_kp(crop, kp2d, scale, self.occluders,
+                                                 self.occ_rng)
+
+    def _item(self, index: int, aug: AugmentParams) -> dict[str, Any]:
         img = self._load_image(index)
         orig_shape = np.array(img.shape[:2], np.float32)
         crop = process_image(
@@ -218,6 +248,55 @@ class PocoDataset:
             self.options["IMG_RES"],
         )
         return self._finish_item(index, aug, crop, orig_shape)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        return self._item(index, self._sample_aug())
+
+    def get_batch(self, indices, keep=None) -> dict[str, Any]:
+        """A whole batch through the loader's threaded decode and warp.
+
+        The augmentation of every index is drawn first, from the same
+        stream in the same order as the per-item path, and the warp matrix
+        is the per-item one (`transforms.affine_output_to_source`), so each
+        row equals the item `__getitem__` gives. A file that fails to
+        decode raises with its path.
+
+        keep: positions (a slice or a list) of the rows to materialize,
+        after the draws for all of `indices` (the JAX package's sharded
+        loading: each process draws the global batch and builds its rows).
+        The result then carries `_global_row_names`, the dataset name of
+        every global row.
+        """
+        indices = [int(i) for i in indices]
+        augs = [self._sample_aug() for _ in indices]
+        names = None
+        if keep is not None:
+            names = [self.dataset_name] * len(indices)
+            rows = (list(range(len(indices)))[keep] if isinstance(keep, slice)
+                    else [int(k) for k in keep])
+            indices = [indices[k] for k in rows]
+            augs = [augs[k] for k in rows]
+            if not indices:
+                return {"_global_row_names": names}
+        batch = self._materialize_batch(indices, augs)
+        if names is not None:
+            batch["_global_row_names"] = names
+        return batch
+
+    def _materialize_batch(self, indices: list[int], augs: list[AugmentParams]) -> dict[str, Any]:
+        res = self.options["IMG_RES"]
+        paths = [os.path.join(self.img_dir, str(self.imgname[i])) for i in indices]
+        affines = np.stack([
+            affine_output_to_source(self.center[i], a.scale * float(self.scale[i]) * 200.0,
+                                    res, a.rot, a.flip)
+            for i, a in zip(indices, augs)
+        ])
+        gains = np.stack([a.pixel_noise for a in augs])
+        crops, dims = loader.batch_decode_affine(paths, affines, gains, res)
+        return collate([
+            self._finish_item(i, a, crops[k], dims[k].astype(np.float32))
+            for k, (i, a) in enumerate(zip(indices, augs))
+        ])
 
 
 def collate(items: list[dict[str, Any]]) -> dict[str, Any]:

@@ -1,14 +1,15 @@
-"""Host-side (numpy/cv2) data transforms for training-time augmentation.
+"""Host-side (numpy) data transforms for training-time augmentation.
 
 These mirror the reference's per-item numpy transforms
-(pocolib/utils/image_utils.py, pocolib/dataset/base_dataset.py:172-262)
-exactly, so npz annotation files and converted checkpoints behave
-identically (port of `poco_tpu.data.transforms`). The demo/inference path
-uses the on-device equivalents in `ops.preprocess` instead.
+(pocolib/utils/image_utils.py, pocolib/dataset/base_dataset.py:172-262),
+so npz annotation files and converted checkpoints behave identically
+(port of `poco_tpu.data.transforms`). The demo/inference path uses the
+on-device equivalents in `ops.preprocess` instead.
 
-OpenCV is imported inside the functions that call it, never when the
-module is imported: a host without it can import the port, and a call
-that needs it raises an ImportError that says so.
+No OpenCV: the three-point affine and Rodrigues' formula are solved in
+float64 numpy as cv2 solves them, and crops are warped by the port's
+image loader (`runtime/loader.py`, the C++ bilinear warp of the whole-batch
+path), so a per-item crop equals its row of `PocoDataset.get_batch`.
 """
 
 from __future__ import annotations
@@ -25,18 +26,7 @@ from ..constants import (
     J49_FLIP_PERM,
     SMPL_POSE_FLIP_PERM,
 )
-
-
-def require_cv2():
-    """The `cv2` module, or an ImportError naming what needs it."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            "poco_tpu_torch.data needs OpenCV (cv2) to read images, crop them "
-            "and rotate axis-angles; install opencv-python on this host"
-        ) from e
-    return cv2
+from ..runtime import loader
 
 
 @dataclasses.dataclass
@@ -95,10 +85,16 @@ def _affine_matrix(
         ],
         np.float32,
     )
-    cv2 = require_cv2()
     if inv:
-        return cv2.getAffineTransform(dst, src)
-    return cv2.getAffineTransform(src, dst)
+        return affine_from_points(dst, src)
+    return affine_from_points(src, dst)
+
+
+def affine_from_points(src, dst) -> np.ndarray:
+    """The (2, 3) float64 affine taking three points `src` to `dst`
+    (`cv2.getAffineTransform`: the same 6x6 system, solved in float64)."""
+    a = np.concatenate([np.asarray(src, np.float64), np.ones((3, 1))], axis=1)
+    return np.linalg.solve(a, np.asarray(dst, np.float64)).T
 
 
 def affine_output_to_source(
@@ -135,15 +131,11 @@ def crop_image(
     out_res: int = IMG_RES,
     rot_deg: float = 0.0,
 ) -> np.ndarray:
-    """Affine warp crop (reference crop_cv2, image_utils.py:189-206)."""
-    trans = _affine_matrix(
-        np.asarray(center, np.float32), scale * 200.0, out_res, rot_deg
-    )
-    cv2 = require_cv2()
-    return cv2.warpAffine(
-        img, trans, (out_res, out_res), flags=cv2.INTER_LINEAR,
-        borderMode=cv2.BORDER_CONSTANT,
-    )
+    """Affine warp crop (reference crop_cv2, image_utils.py:189-206):
+    bilinear, zero outside the image, float32 out. `img` holds 8-bit
+    pixels (uint8, or floats with whole values in [0, 255])."""
+    m = affine_output_to_source(center, scale * 200.0, out_res, rot_deg)
+    return loader.affine_warp(img, m, out_res=out_res)
 
 
 def transform_point(pt, center, scale, out_res=IMG_RES, rot_deg=0.0):
@@ -166,13 +158,12 @@ def process_image(
 
     Reference: rgb_processing (base_dataset.py:201-221), but HWC (the
     model's batch is NHWC) with normalization left to the device
-    (ops.preprocess.normalize_image).
+    (ops.preprocess.normalize_image). One warp through the loader with
+    the flip in the matrix and the noise as the gain: the arithmetic of a
+    row of `PocoDataset.get_batch`.
     """
-    out = crop_image(img, center, scale, out_res, aug.rot).astype(np.float32)
-    if aug.flip:
-        out = out[:, ::-1]
-    out = np.clip(out * aug.pixel_noise[None, None, :], 0.0, 255.0)
-    return out
+    m = affine_output_to_source(center, scale * 200.0, out_res, aug.rot, aug.flip)
+    return loader.affine_warp(img, m, aug.pixel_noise, out_res)
 
 
 def process_keypoints_2d(
@@ -236,10 +227,44 @@ def rotate_axis_angle(aa: np.ndarray, rot_deg: float) -> np.ndarray:
             [0.0, 0.0, 1.0],
         ]
     )
-    cv2 = require_cv2()
-    r, _ = cv2.Rodrigues(aa.astype(np.float64))
-    res, _ = cv2.Rodrigues(rz @ r)
-    return res[:, 0].astype(np.float32)
+    r = rodrigues_to_matrix(aa.astype(np.float64))
+    return rodrigues_to_vector(rz @ r).astype(np.float32)
+
+
+def rodrigues_to_matrix(rvec: np.ndarray) -> np.ndarray:
+    """Axis-angle (3,) -> rotation matrix, float64 (`cv2.Rodrigues`)."""
+    rvec = np.asarray(rvec, np.float64).reshape(3)
+    theta = float(np.linalg.norm(rvec))
+    if theta < np.finfo(np.float64).eps:
+        return np.eye(3)
+    r = rvec / theta
+    c, s = np.cos(theta), np.sin(theta)
+    skew = np.array([[0.0, -r[2], r[1]], [r[2], 0.0, -r[0]], [-r[1], r[0], 0.0]])
+    return c * np.eye(3) + (1.0 - c) * np.outer(r, r) + s * skew
+
+
+def rodrigues_to_vector(rmat: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> axis-angle (3,), float64, as `cv2.Rodrigues`
+    computes it: the nearest rotation (SVD) first, the angle from the
+    trace, the axis from the skew part or, near pi, from the diagonal."""
+    u, _, vt = np.linalg.svd(np.asarray(rmat, np.float64))
+    rm = u @ vt
+    r = np.array([rm[2, 1] - rm[1, 2], rm[0, 2] - rm[2, 0], rm[1, 0] - rm[0, 1]])
+    s = np.sqrt((r @ r) * 0.25)
+    c = np.clip((np.trace(rm) - 1.0) * 0.5, -1.0, 1.0)
+    theta = np.arccos(c)
+    if s >= 1e-5:
+        return r * (theta / (2.0 * s))
+    if c > 0:
+        return np.zeros(3)
+    r = np.array([
+        np.sqrt(max((rm[0, 0] + 1.0) * 0.5, 0.0)),
+        np.sqrt(max((rm[1, 1] + 1.0) * 0.5, 0.0)) * (-1.0 if rm[0, 1] < 0 else 1.0),
+        np.sqrt(max((rm[2, 2] + 1.0) * 0.5, 0.0)) * (-1.0 if rm[0, 2] < 0 else 1.0),
+    ])
+    if abs(r[0]) < abs(r[1]) and abs(r[0]) < abs(r[2]) and (rm[1, 2] > 0) != (r[1] * r[2] > 0):
+        r[2] = -r[2]
+    return r * (theta / np.linalg.norm(r))
 
 
 def flip_keypoints(kp: np.ndarray) -> np.ndarray:

@@ -21,9 +21,10 @@ model, loss and optimizer from the hparams tree and runs epochs:
 The trainer owns its randomness: it seeds torch's generators (CPU and
 CUDA) from SEED_VALUE before building the model, and the dropout masks
 come from them. `PRECISION: 16` runs the model under a bf16 autocast,
-with SMPL and the losses in fp32. Two JAX features wait for their slices
-and are refused: TRAINING.SAVE_IMAGES (needs `viz/`) and
-DATASET.USE_SYNTHETIC_OCCLUSION (needs `data/occlusion.py`).
+with SMPL and the losses in fp32. TRAINING.SAVE_IMAGES waits for `viz/`
+and is refused. DATASET.USE_SYNTHETIC_OCCLUSION is refused too: the JAX
+trainer passes its datasets no occluders, so the flag does nothing there;
+`PocoDataset(occluders=...)` takes them.
 """
 
 from __future__ import annotations
@@ -99,8 +100,11 @@ class Trainer:
             )
         if hparams.DATASET.get("USE_SYNTHETIC_OCCLUSION"):
             raise NotImplementedError(
-                "DATASET.USE_SYNTHETIC_OCCLUSION needs data/occlusion.py, which "
-                "comes with a later slice of the port"
+                "DATASET.USE_SYNTHETIC_OCCLUSION: the JAX package's trainer builds its "
+                "datasets without occluders (no occluders= anywhere in poco_tpu), so the "
+                "flag changes nothing there and the port refuses it rather than differ; "
+                "to occlude, pass occluders to PocoDataset(occluders=...) from "
+                "poco_tpu_torch.data.occlusion (load_pascal_occluders, synthetic_occluders)"
             )
         self.device = resolve_device(device)
         self.hparams = hparams

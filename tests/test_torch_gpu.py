@@ -24,8 +24,13 @@ card as on the CPU (per-sample metrics within 1e-4 m), launches
 `skinning` 5 times a batch (7 with flip-TTA), its Procrustes matches
 float64 numpy, and flip-TTA of a flip-equivariant stub is exact. One
 full-width POCO-CLIFF train step is finite and launches the forward
-kernel twice and the backward kernel once.
+kernel twice and the backward kernel once. The image loader on the
+card's host (`runtime/loader.py`; nvJPEG where the host has no libjpeg)
+decodes the smoke JPEGs within 2 grey levels of cv2's 16x16 thumbnails,
+applies EXIF orientation in cv2's layout, and raises on bad files.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -467,3 +472,70 @@ def test_full_width_train_step_on_the_card(cuda):
         if not key.startswith("_"):
             assert bool(torch.isfinite(value).all()), key
     assert not torch.equal(before, model.head.fc1.weight)
+
+
+# --------------------------------------------------------------------------
+# the image loader on the card's host (its nvJPEG route where the host has
+# no libjpeg; the same checks hold the libjpeg route)
+# --------------------------------------------------------------------------
+
+SMOKE_DIR = Path(__file__).resolve().parents[1] / "data" / "dataset_folders" / "smoke"
+THUMBS = Path(__file__).resolve().parent / "data" / "torch_smoke_thumbs.npz"
+
+# cv2.imread's EXIF transforms (imgcodecs ExifTransform), as numpy
+EXIF_LAYOUT = {
+    2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+    5: lambda a: a.transpose(1, 0, 2), 6: lambda a: a.transpose(1, 0, 2)[:, ::-1],
+    7: lambda a: a.transpose(1, 0, 2)[::-1, ::-1], 8: lambda a: a.transpose(1, 0, 2)[::-1],
+}
+
+
+def test_loader_decodes_the_smoke_jpegs_within_cv2s_thumbnails(cuda):
+    """Each of the 48 smoke JPEGs against `cv2.imread`'s 16x16 area-mean
+    thumbnail (tests/data/torch_smoke_thumbs.npz): within 2 grey levels,
+    channel means within 0.5 (phase 4g's bars)."""
+    from poco_tpu_torch.runtime import loader
+
+    ref = np.load(THUMBS)
+    for name, thumb, mean in zip(ref["names"], ref["thumbs"], ref["means"]):
+        img = loader.decode_image(str(SMOKE_DIR / str(name))).astype(np.float64)
+        got = img.reshape(16, img.shape[0] // 16, 16, img.shape[1] // 16, 3).mean(axis=(1, 3))
+        assert np.abs(got - thumb).max() <= 2.0, name
+        assert np.abs(img.mean(axis=(0, 1)) - mean).max() <= 0.5, name
+
+
+@pytest.mark.parametrize("orientation", sorted(EXIF_LAYOUT))
+def test_loader_applies_exif_orientation_on_the_card_host(cuda, tmp_path, orientation):
+    """A smoke JPEG with an EXIF orientation tag spliced in decodes as its
+    untagged bytes transposed and flipped the way cv2.imread does, in the
+    single and the batch path."""
+    from poco_tpu_torch.runtime import loader
+
+    plain = (SMOKE_DIR / "test_0003.jpg").read_bytes()
+    tiff = (b"II*\x00\x08\x00\x00\x00" + b"\x01\x00"
+            + b"\x12\x01\x03\x00\x01\x00\x00\x00" + bytes([orientation, 0, 0, 0])
+            + b"\x00\x00\x00\x00")
+    payload = b"Exif\x00\x00" + tiff
+    tagged = plain[:2] + b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big") + payload + plain[2:]
+    path = tmp_path / "tagged.jpg"
+    path.write_bytes(tagged)
+    got = loader.decode_image(str(path))
+    np.testing.assert_array_equal(got, EXIF_LAYOUT[orientation](loader.decode_image(plain)))
+    affine = np.array([[[1.0, 0.2, 3.0], [-0.1, 1.0, 5.0]]], np.float32)
+    crops, dims = loader.batch_decode_affine([str(path)], affine, np.ones((1, 3)), 32)
+    assert tuple(dims[0]) == got.shape[:2]
+    np.testing.assert_array_equal(crops[0], loader.affine_warp(got, affine[0], out_res=32))
+
+
+def test_loader_raises_on_bad_files_on_the_card_host(cuda, tmp_path):
+    from poco_tpu_torch.runtime import loader
+
+    truncated = tmp_path / "truncated.jpg"
+    truncated.write_bytes((SMOKE_DIR / "test_0000.jpg").read_bytes()[:300])
+    with pytest.raises(ValueError, match="truncated.jpg"):
+        loader.decode_image(str(truncated))
+    with pytest.raises(ValueError, match="unsupported format"):
+        loader.decode_image(b"not an image")
+    with pytest.raises(ValueError, match=r"missing\.jpg: unreadable file"):
+        loader.batch_decode_affine([str(tmp_path / "missing.jpg")], np.zeros((1, 2, 3)),
+                                   np.ones((1, 3)), 8)

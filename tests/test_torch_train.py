@@ -489,9 +489,18 @@ def test_train_step_matches_jax(monkeypatch, kind):
     gradient is below its leaf's rounding (a few in 1e5 of the narrow
     twin's) moves by anything in [-lr, lr] on either side."""
     twin = narrow_models(monkeypatch, "cliff") if kind == "narrow_cliff" else _tiny_models(monkeypatch)
+    check_train_step_against_jax(monkeypatch, twin, CLIFF_YAML, narrow=kind == "narrow_cliff")
+
+
+def check_train_step_against_jax(monkeypatch, twin: dict, yaml, narrow: bool) -> None:
+    """One train step of `twin["model"]` against JAX's `make_train_step`
+    on `twin["jax_model"]`, with the loss settings of `yaml`, at the bars
+    of `test_train_step_matches_jax` (each gradient leaf in L2 form on a
+    narrow twin, elementwise otherwise)."""
+    kind = "narrow_cliff" if narrow else "tiny_cliff"
     model, jax_model = twin["model"], twin["jax_model"]
     _all_keep(monkeypatch)
-    loss_cfg = loss_config_from_hparams(update_hparams(str(CLIFF_YAML)))
+    loss_cfg = loss_config_from_hparams(update_hparams(str(yaml)))
     batch = _train_batch(7)
     masks = ReluMasks()
     _float64_grads(model, _t(batch), twin["smpl"], loss_cfg, masks)
@@ -503,7 +512,7 @@ def test_train_step_matches_jax(monkeypatch, kind):
     variables = jax.tree.map(np.array, jax_variables(model))
     jax_state = create_train_state(jax_model, variables, make_fused_optimizer(lr=LR))
     jax_step = jax_make_train_step(
-        jax_model, jax_loss_config(jax_update_hparams(str(CLIFF_YAML))), donate=False
+        jax_model, jax_loss_config(jax_update_hparams(str(yaml))), donate=False
     )
     new_state, jax_metrics = jax.block_until_ready(
         jax_step(jax_state, _j(batch), twin["jax_smpl"], jax.random.PRNGKey(0))
