@@ -12,7 +12,7 @@ Phases, each of which raises (exit code 1) on failure:
   3. kernel check: the skinning kernel (`skinning`, 3xTF32 tensor cores)
      and its fp32-FMA yardstick (`skinning_simt`) against the plain torch
      version on the card, at every batch the main paths launch it with
-     (B = 1, 2, 8, 16, 64, 128 at V=6890; the launch layout depends on B)
+     (B = 1, 2, 4, 8, 16, 32, 64, 128 at V=6890; the launch layout depends on B)
      and a ragged shape; the backward kernel (`skinning_backward`, 3xTF32
      tensor cores) and its fp32-FMA yardstick (`skinning_backward_simt`)
      against their plain version at the same shapes (both gradients within
@@ -72,9 +72,25 @@ Phases, each of which raises (exit code 1) on failure:
      and with a loader thread decoding full-HD batches beside it, and a
      `Trainer.fit` of POCO-CLIFF at batch 64 over crops of that JPEG (the
      trainer's crops/s, the loader in the loop);
-  5. crops/s at batch 128, fp32: POCO-CLIFF with the kernel and, in turns,
-     with the plain skinning in its place (the yardstick); POCO-PARE with
-     the kernel;
+  4h. serving: POCO-CLIFF (phase 4's weights) exported on the card with
+     `runtime/export.py` (uint8 input, buckets 1, 8, 32, 128; export, load
+     and per-bucket warm-up seconds, the artifact's size); the exported
+     program against eager `model(batch, smpl)` at 1, 8, 32 and 128 crops
+     (joints3d / vertices within 1e-6 m, every other output within 1e-5
+     absolute and relative), `skinning` once per bucket dispatch; a
+     torch.profiler trace of `ExportedPoco.predict` at 1 and 32 crops
+     (device busy share); then a `PocoServer` on loopback driven by
+     `cli/bench_serving.run_combo` at 1x1, 8x1, 1x8, 64x1 and 1x128
+     (clients x crops a request, at least 100 timed requests each): p50/p99
+     latency, crops/s and requests per dispatch, one `skinning` launch a
+     dispatch, and every response's shapes and its rows against
+     `ExportedPoco.predict` on that client's own crops at the bucket its
+     wave ran at, to the same tolerances; a compact artifact's fp16
+     vertices within 1 mm of the fp32 ones;
+  5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
+     (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
+     kernel and, in turns, with the plain skinning in its place (the
+     yardstick); POCO-PARE with the kernel;
   6. a torch.profiler trace of 128-crop requests of POCO-CLIFF and of
      POCO-PARE, of POCO-CLIFF's eval step on a batch of 64 with flip-TTA
      off and on, of one train step at batch 64 of each POCO model, and of
@@ -90,10 +106,10 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4g). The
+The yardsticks never launch on the main paths (checked in 4-4h). The
 line before the last is the kernels' JSON record (`skinning`,
 `skinning_simt`, `skinning_backward`, `skinning_backward_simt`,
-launches summed over phases 4-4g); the last line is
+launches summed over phases 4-4h); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -104,6 +120,8 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import hashlib
+import io
 import json
 import math
 import os
@@ -118,6 +136,7 @@ import numpy as np
 import torch
 from torch.utils.data import Subset
 
+from poco_tpu_torch.cli import bench_serving
 from poco_tpu_torch.cli import eval as cli_eval
 from poco_tpu_torch.cli import train as cli_train
 from poco_tpu_torch.config import model_config_from_hparams, update_hparams
@@ -152,6 +171,8 @@ from poco_tpu_torch.ops.skinning import (
     skinning_simt,
 )
 from poco_tpu_torch.runtime import loader as image_loader
+from poco_tpu_torch.runtime.export import export_poco, load_exported
+from poco_tpu_torch.runtime.server import PocoServer, prepare_request_batch
 from poco_tpu_torch.smpl import lbs as lbs_module
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.smpl.lbs import smpl_forward
@@ -355,9 +376,10 @@ def cold_ms(fn, sets, calls: int = 40) -> float:
 # 128, 8, 1, card-vs-CPU checks of 2, eval batches of 64 and 16, train
 # steps of 64 (and `skinning_backward` there); phase 4g's tiny_smoke
 # training and validation at 4, its full-width eval at 8 and its
-# full-width fit at 16 (the smoke sets hold 16 samples: no ragged batch)
-SKIN_SHAPES = ((128, 6890), (64, 6890), (16, 6890), (8, 6890), (4, 6890), (2, 6890),
-               (1, 6890), (3, 1001))
+# full-width fit at 16 (the smoke sets hold 16 samples: no ragged batch);
+# phase 4h's served buckets 1, 8, 32 and 128, and its export's batch of 2
+SKIN_SHAPES = ((128, 6890), (64, 6890), (32, 6890), (16, 6890), (8, 6890), (4, 6890),
+               (2, 6890), (1, 6890), (3, 1001))
 
 
 KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
@@ -686,7 +708,7 @@ def phase_main_path(seed: int) -> dict:
     card_vs_cpu("cliff", model, build_poco_cliff, smpl, image, c2, s2,
                 ("pred_cam", "pred_shape", "var_pose"))
     return {"counts": counts, "model": model, "smpl": smpl, "image": image,
-            "request": requests[-1], "calib": calib, "rng": rng}
+            "requests": requests, "request": requests[-1], "calib": calib, "rng": rng}
 
 
 def phase_pare(ctx: dict, seed: int) -> dict:
@@ -1785,6 +1807,198 @@ def fit_on_fullhd(ctx: dict, train: dict, seed: int, card: str) -> Counter:
     return counts
 
 
+SERVE_BUCKETS = (1, 8, 32, 128)
+SERVE_HELD = SERVE_BUCKETS        # crops held against eager, each a bucket (no padding)
+# (clients, crops a request, requests a client): the HTTP combos, each with
+# at least 100 timed requests, so that its p99 is a tail and not the largest
+SERVE_COMBOS = ((1, 1, 100), (8, 1, 13), (1, 8, 100), (64, 1, 4), (1, 128, 100))
+SERVE_METERS_TOL = 1e-6   # joints3d / vertices, exported program vs eager, m
+SERVE_HEAD_TOL = 1e-5     # every other output, absolute and relative (pixels near 1e3)
+COMPACT_TOL = 1e-3        # fp16 vertices of a compact artifact vs fp32, m (export.py:46-49)
+
+
+def served_diffs(got: dict, want: dict) -> tuple[dict[str, float], list[str]]:
+    """The largest difference per key of `got` against `want`, and the keys
+    beyond SERVE_METERS_TOL / SERVE_HEAD_TOL."""
+    diffs = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in want}
+    bad = [k for k in want
+           if (diffs[k] > SERVE_METERS_TOL if k in ("smpl_vertices", "smpl_joints3d")
+               else not np.allclose(got[k], want[k], atol=SERVE_HEAD_TOL, rtol=SERVE_HEAD_TOL))]
+    return diffs, bad
+
+
+def served_vs(label: str, got: dict, want: dict) -> None:
+    """Every output of `got` against `want`: the largest difference per
+    key printed, then held to SERVE_METERS_TOL / SERVE_HEAD_TOL."""
+    check(sorted(got) == sorted(want), f"{label}: keys {sorted(got)} != {sorted(want)}")
+    diffs, bad = served_diffs(got, want)
+    print(f"{label}: largest difference by key {diffs}")
+    check(not bad, f"{label}: {bad} differ by {[diffs[k] for k in bad]}")
+
+
+def served_batch(ctx: dict, n: int) -> dict[str, np.ndarray]:
+    """`n` uint8 crops from the phase's rng, with the CLIFF conditioning
+    of `n` random boxes on the phase-4 image."""
+    rng, (h, w) = ctx["rng"], ctx["image"].shape[:2]
+    centers, scales = random_boxes(rng, n, h, w)
+    cond = request_crops(ctx["image"], centers, scales)
+    batch = {k: np.ascontiguousarray(v.cpu().numpy()) for k, v in cond.items() if k != "img"}
+    batch["img"] = rng.randint(0, 256, (n, 224, 224, 3)).astype(np.uint8)
+    return batch
+
+
+def bucket_refs(served, crops: np.ndarray, buckets) -> dict[int, dict[str, np.ndarray]]:
+    """`served.predict` of every row of `crops` (uint8, with a request's
+    defaults for the other keys) in a program call of exactly `b` rows, for
+    each bucket `b`: the rows cut into groups of `b`, the last group filled
+    up with rows from the start."""
+    batch = prepare_request_batch(served, {"img": crops})
+    m, refs = len(crops), {}
+    for b in buckets:
+        outs = []
+        for start in range(0, m, b):
+            out = served.predict({k: v[np.arange(start, start + b) % m] for k, v in batch.items()})
+            outs.append({k: v[:min(b, m - start)] for k, v in out.items()})
+        refs[b] = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    return refs
+
+
+def check_served_pairs(served, clients: int, crops: int, pairs, num_verts: int) -> None:
+    """Every response of an HTTP combo: its keys, shapes and finiteness,
+    then its rows against `predict` on the request's own crops at each
+    bucket a wave of the combo can run at (one request up to one from
+    every client). A response must match at one of them: a row scattered
+    to the wrong client, or a wrong program at a bucket, matches at none."""
+    largest = served.batch_sizes[-1]
+    buckets = sorted({served.buckets_for(k * crops)[0] for k in range(1, clients + 1)
+                      if k * crops <= largest})
+    label = f"served {clients}x{crops} over HTTP vs predict"
+    requests = list(dict.fromkeys(req for req, _ in pairs))
+    crops_of = [np.load(io.BytesIO(req))["img"] for req in requests]
+    refs = bucket_refs(served, np.concatenate(crops_of), buckets)
+    offsets = np.cumsum([0] + [len(c) for c in crops_of])
+    index = {req: i for i, req in enumerate(requests)}
+    distinct = {}
+    for req, resp in pairs:
+        distinct.setdefault((index[req], hashlib.sha256(resp).digest()), resp)
+    matched, worst = Counter(), {}
+    for (i, _), resp in distinct.items():
+        out, n = dict(np.load(io.BytesIO(resp))), len(crops_of[i])
+        check(sorted(out) == served.meta["output_keys"], f"{label}: keys {sorted(out)}")
+        for key, shape in {"pred_pose": (n, 24, 3, 3), "smpl_vertices": (n, num_verts, 3),
+                           "smpl_joints3d": (n, 49, 3), "var_pose": (n, 24)}.items():
+            check(out[key].shape == shape, f"{label}: {key} {out[key].shape}")
+        check(all(np.isfinite(v).all() for v in out.values()), f"{label}: not finite")
+        tried = {}
+        for b in buckets:
+            want = {k: v[offsets[i]:offsets[i + 1]] for k, v in refs[b].items()}
+            diffs, bad = served_diffs(out, want)
+            tried[b] = (max(diffs.values()), bad, diffs)
+        fits = [b for b in buckets if not tried[b][1]]
+        check(bool(fits), f"{label}: request {i}'s response matches predict at no bucket: "
+                          f"{ {b: (t[0], t[1]) for b, t in tried.items()} }")
+        best = min(fits, key=lambda b: tried[b][0])
+        matched[best] += 1
+        for k, d in tried[best][2].items():
+            worst[k] = max(worst.get(k, 0.0), d)
+    print(f"{label}: {len(pairs)} responses ({len(distinct)} distinct) to {len(requests)} "
+          f"clients' crops, held at buckets {buckets}; matched at {dict(matched)}; largest "
+          f"difference by key {worst}")
+
+
+def phase_serving(ctx: dict, card: str) -> Counter:
+    """Phase 4h: POCO-CLIFF (phase 4's weights) exported on the card with
+    uint8 input and buckets SERVE_BUCKETS, loaded, held against eager
+    `model(batch, smpl)` at every bucket, profiled at 1 and 32 crops,
+    served over loopback HTTP at SERVE_COMBOS with every response held to
+    `predict`, and a compact artifact against the fp32 one. Returns the
+    launches of the served runs (one `skinning` a bucket dispatch)."""
+    import tempfile
+
+    print("== 4h. serving: export, load, HTTP on loopback")
+    model, smpl = ctx["model"], ctx["smpl"]
+    device, num_verts = smpl.v_template.device, smpl.v_template.shape[0]
+    counts = Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        art = f"{tmp}/cliff_u8"
+        start = time.perf_counter()
+        export_poco(model, smpl, art, batch_sizes=SERVE_BUCKETS, uint8_input=True, device=device)
+        export_s = time.perf_counter() - start
+        size = sum(p.stat().st_size for p in Path(art).iterdir())
+        print(f"export: {export_s:.2f} s, artifact {size / 1e6:.1f} MB "
+              f"({sorted(p.name for p in Path(art).iterdir())}), buckets {SERVE_BUCKETS}")
+        served = load_exported(art, device=device)
+        served.warmup()
+        print(f"load: {served.load_seconds:.2f} s (one program for every bucket); warm-up by "
+              f"bucket: { {b: round(t, 3) for b, t in served.warmup_seconds.items()} } s")
+
+        # the exported program against eager on the same crops
+        held = {n: served_batch(ctx, n) for n in SERVE_HELD}
+        for n, batch in held.items():
+            tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            tb["img"] = normalize_image(tb["img"].float())
+            with torch.inference_mode():
+                want = {k: v.cpu().numpy() for k, v in model(tb, smpl).items() if v is not None}
+            reset_counts()
+            got = served.predict(batch)
+            torch.cuda.synchronize()
+            run = read_counts(f"serving predict {n}")
+            check(run["skinning"] == len(served.buckets_for(n)),
+                  f"serving: {run['skinning']} skinning launches for {n} crops")
+            counts.update(run)
+            served_vs(f"exported vs eager, {n} crops", got, want)
+        print(f"exported predict launches (one a bucket dispatch): {dict(counts)}")
+        for n in (1, 128):
+            ts = timed_requests(lambda: served.predict(held[n]), reps=10)
+            print_times("ExportedPoco.predict in-process, uint8 crops", n, ts, card)
+        # a 1-crop wave and a 32-crop wave (what 64 one-crop clients coalesce
+        # into): how much of the call the card is busy
+        for n in (1, 32):
+            profile_request(f"ExportedPoco.predict, {n} uint8 crops",
+                            lambda: served.predict(held[n]), card)
+
+        # HTTP on loopback, every combo's launches counted on their own
+        server = PocoServer(served, port=0, batch_window_ms=5.0).start(warmup=False)
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            for clients, crops, reqs in SERVE_COMBOS:
+                pairs = []
+                reset_counts()
+                dispatch0 = server.batcher.dispatch_count
+                row = bench_serving.run_combo(base, server.batcher, clients, crops, reqs,
+                                              check=pairs.extend)
+                torch.cuda.synchronize()
+                run = read_counts(f"serving http {clients}x{crops}")
+                dispatches = server.batcher.dispatch_count - dispatch0
+                print(f"serving {clients}x{crops}: " + json.dumps({"card": card, **row}))
+                print(f"serving {clients}x{crops}: launches {dict(run)} over {dispatches} "
+                      f"dispatches, the settling request's included")
+                check(run["skinning"] == dispatches,
+                      "serving: skinning must launch once per dispatch (each wave <= 128 rows)")
+                counts.update(run)
+                check_served_pairs(served, clients, crops, pairs, num_verts)
+        finally:
+            server.stop()
+
+        # a compact artifact: fp16 vertices within 1 mm of the fp32 ones
+        compact = f"{tmp}/cliff_u8_compact"
+        start = time.perf_counter()
+        export_poco(model, smpl, compact, batch_sizes=(8,), uint8_input=True, compact=True,
+                    device=device)
+        print(f"compact export: {time.perf_counter() - start:.2f} s")
+        reset_counts()
+        small = load_exported(compact, device=device).predict(held[8])
+        counts.update(read_counts("serving compact"))
+        full = served.predict(held[8])
+        dist = float(np.linalg.norm(small["smpl_vertices"].astype(np.float32)
+                                    - full["smpl_vertices"], axis=-1).max())
+        print(f"compact: smpl_vertices {small['smpl_vertices'].dtype}, largest distance to "
+              f"fp32 {dist:.3e} m (tolerance {COMPACT_TOL})")
+        check(small["smpl_vertices"].dtype == np.float16 and dist <= COMPACT_TOL,
+              f"compact vertices {dist} m from the fp32 artifact's")
+    return counts
+
+
 def timed_requests(run, reps: int) -> list[float]:
     times = []
     for _ in range(reps):
@@ -1804,10 +2018,19 @@ def print_times(label: str, batch: int, ts: list[float], card: str) -> None:
 
 
 def phase_throughput(ctx: dict, pare: dict, reps: int, card: str) -> None:
-    """Crops/s at batch 128. POCO-CLIFF: the plain skinning swapped into the
+    """Request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes, and
+    crops/s at batch 128. POCO-CLIFF: the plain skinning swapped into the
     SMPL stage is timed in turns (kernel, plain, plain, kernel) as its
     yardstick. POCO-PARE: with the kernel, at least 10 requests."""
     print("== 5. throughput")
+    for c, s in ctx["requests"][:2]:   # the 1- and 8-box requests of phase 4
+        def run_small(c=c, s=s):
+            detect_forward(ctx["model"], ctx["smpl"], ctx["image"], c, s)
+
+        for _ in range(3):
+            run_small()
+        print_times("POCO-CLIFF detect_forward request, skinning kernel", len(c),
+                    timed_requests(run_small, max(10, reps)), card)
     c, s = ctx["request"]
 
     def run():
@@ -1994,6 +2217,7 @@ def main() -> int:
     paths["train_pare"] = train["pare_counts"]
     images = phase_images(ctx, train, args.seed, card)
     paths.update(images["counts"])
+    paths["serving"] = phase_serving(ctx, card)
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)

@@ -4,10 +4,16 @@
 `poco_tpu/ops/pallas_lbs.py:skinning_pallas`, a 3xTF32 tensor-core blend)
 on CUDA tensors, and runs `skinning_reference` only for tensors that lie
 on the CPU. A CUDA tensor either runs the kernel or raises: there is no
-fallback. Where autograd needs it, `skinning` is a `torch.autograd.Function`
-whose backward launches `csrc/skinning_backward.cu` (`skinning_backward`,
-plain version `skinning_backward_reference`): the gradients of v_posed and
-of the transforms; the skinning weights are SMPL buffers and get none.
+fallback. Both kernels of the main paths are registered torch custom ops,
+`poco_tpu_torch::skinning` and `poco_tpu_torch::skinning_backward`, each
+with a CUDA implementation (the kernel, through ctypes), a CPU one (the
+plain version) and a fake one (shapes only), so a `torch.export` program
+keeps a call to the op, which launches the kernel where the program runs
+on the card, instead of the plain einsums. The forward's autograd is the
+backward op, which launches `csrc/skinning_backward.cu` (plain version
+`skinning_backward_reference`): the gradients of v_posed and of the
+transforms; the skinning weights are SMPL buffers and get none. Importing
+this module registers the ops.
 `skinning_simt` launches the first, fp32-FMA version of the forward kernel
 (`csrc/skinning_simt.cu`) under the same contract but without a backward,
 and `skinning_backward_simt` the first, fp32-FMA version of the backward
@@ -138,23 +144,67 @@ def _refuse_gradient(library: str, tensors, what: str) -> None:
         )
 
 
-class _SkinningFunction(torch.autograd.Function):
-    """The skinning kernels with autograd: `skinning` forward, and
-    `skinning_backward` for the gradients of the transforms and v_posed.
-    On CPU tensors both wrappers take their plain versions."""
+@torch.library.custom_op("poco_tpu_torch::skinning", mutates_args=(), device_types="cuda")
+def _skinning_op(
+    lbs_weights: torch.Tensor, rel_tfms: torch.Tensor, v_posed: torch.Tensor
+) -> torch.Tensor:
+    """The CUDA implementation of the op: the kernel, counted."""
+    out = _launch("skinning", "poco_skinning_f32", lbs_weights, rel_tfms, v_posed)
+    skinning.launches += 1
+    return out
 
-    @staticmethod
-    def forward(ctx, lbs_weights, rel_tfms, v_posed):
-        ctx.save_for_backward(lbs_weights, rel_tfms, v_posed)
-        return skinning(lbs_weights, rel_tfms, v_posed)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        lbs_weights, rel_tfms, v_posed = ctx.saved_tensors
-        grad_v_posed, grad_rel_tfms = skinning_backward(
-            lbs_weights, rel_tfms, v_posed, grad_out.contiguous()
-        )
-        return None, grad_rel_tfms, grad_v_posed
+@_skinning_op.register_kernel("cpu")
+def _skinning_cpu(lbs_weights, rel_tfms, v_posed):
+    return skinning_reference(lbs_weights, rel_tfms, v_posed)
+
+
+@_skinning_op.register_fake
+def _skinning_fake(lbs_weights, rel_tfms, v_posed):
+    return v_posed.new_empty(v_posed.shape)
+
+
+@torch.library.custom_op(
+    "poco_tpu_torch::skinning_backward", mutates_args=(), device_types="cuda"
+)
+def _skinning_backward_op(
+    lbs_weights: torch.Tensor,
+    rel_tfms: torch.Tensor,
+    v_posed: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation of the op: the backward kernel, counted."""
+    out = _backward("skinning_backward", "", lbs_weights, rel_tfms, v_posed, grad_out)
+    skinning_backward.launches += 1
+    return out
+
+
+@_skinning_backward_op.register_kernel("cpu")
+def _skinning_backward_cpu(lbs_weights, rel_tfms, v_posed, grad_out):
+    return skinning_backward_reference(lbs_weights, rel_tfms, v_posed, grad_out)
+
+
+@_skinning_backward_op.register_fake
+def _skinning_backward_fake(lbs_weights, rel_tfms, v_posed, grad_out):
+    return v_posed.new_empty(v_posed.shape), rel_tfms.new_empty(rel_tfms.shape)
+
+
+def _skinning_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _skinning_grad(ctx, grad_out):
+    """Autograd of the `skinning` op: the `skinning_backward` op gives the
+    gradients of the transforms and v_posed; the skinning weights get none
+    (the wrappers refuse weights that need one before the forward)."""
+    lbs_weights, rel_tfms, v_posed = ctx.saved_tensors
+    grad_v_posed, grad_rel_tfms = torch.ops.poco_tpu_torch.skinning_backward(
+        lbs_weights, rel_tfms, v_posed, grad_out.contiguous()
+    )
+    return None, grad_rel_tfms, grad_v_posed
+
+
+_skinning_op.register_autograd(_skinning_grad, setup_context=_skinning_setup_context)
 
 
 def skinning(
@@ -162,23 +212,21 @@ def skinning(
 ) -> torch.Tensor:
     """Fused skinning; same contract as `skinning_reference`.
 
-    CPU tensors take the plain version (autograd follows it as any torch
-    code). CUDA tensors must be float32, contiguous and on one device,
-    with J = 24; the kernel writes into a fresh output on the current
-    stream and `skinning.launches` counts each launch. When autograd is on
-    and the transforms or v_posed need a gradient, the result carries the
-    backward kernel (`skinning_backward`); weights that need a gradient
-    raise, since the kernel gives them none.
+    Calls the `poco_tpu_torch::skinning` op. CPU tensors take the plain
+    version, forward and backward. CUDA tensors must be float32, contiguous
+    and on one device, with J = 24; the kernel writes into a fresh output
+    on the current stream and `skinning.launches` counts each launch (never
+    a traced or fake call). When autograd is on, the result carries the
+    backward op (`skinning_backward`) for the transforms and v_posed;
+    weights that need a gradient raise, since the kernel gives them none.
+    Tensors on any other device (meta included) raise here, before the op
+    would reach its fake implementation.
     """
     tensors = (lbs_weights, rel_tfms, v_posed)
-    if all(t.device.type == "cpu" for t in tensors):
-        return skinning_reference(lbs_weights, rel_tfms, v_posed)
     _refuse_gradient("skinning", (lbs_weights,), "the skinning weights")
-    if torch.is_grad_enabled() and (rel_tfms.requires_grad or v_posed.requires_grad):
-        return _SkinningFunction.apply(lbs_weights, rel_tfms, v_posed)
-    out = _launch("skinning", "poco_skinning_f32", lbs_weights, rel_tfms, v_posed)
-    skinning.launches += 1
-    return out
+    if not all(t.device.type == "cpu" for t in tensors):
+        _check_cuda("skinning", tensors, "(V, 24), (B, 24, 4, 4), (B, V, 3)")
+    return torch.ops.poco_tpu_torch.skinning(*tensors)
 
 
 def _backward(library, suffix, lbs_weights, rel_tfms, v_posed, grad_out):
@@ -214,17 +262,17 @@ def skinning_backward(
     """The gradients of skinning; same contract as
     `skinning_backward_reference`.
 
-    CPU tensors take the plain version. CUDA tensors must be float32,
-    contiguous and on one device; the kernel (3xTF32 tensor cores) writes
-    fresh outputs (and a scratch of per-tile partial sums) on the current
-    stream, and `skinning_backward.launches` counts each launch.
+    Calls the `poco_tpu_torch::skinning_backward` op. CPU tensors take the
+    plain version. CUDA tensors must be float32, contiguous and on one
+    device; the kernel (3xTF32 tensor cores) writes fresh outputs (and a
+    scratch of per-tile partial sums) on the current stream, and
+    `skinning_backward.launches` counts each launch.
     """
     tensors = (lbs_weights, rel_tfms, v_posed, grad_out)
-    if all(t.device.type == "cpu" for t in tensors):
-        return skinning_backward_reference(*tensors)
-    out = _backward("skinning_backward", "", *tensors)
-    skinning_backward.launches += 1
-    return out
+    if not all(t.device.type == "cpu" for t in tensors):
+        _check_cuda("skinning_backward", tensors,
+                    "(V, 24), (B, 24, 4, 4), (B, V, 3), (B, V, 3)")
+    return torch.ops.poco_tpu_torch.skinning_backward(*tensors)
 
 
 def skinning_backward_simt(

@@ -1,1 +1,2 @@
-"""Host-side runtime of the port: the native image loader."""
+"""Host-side runtime of the port: the native image loader, export
+artifacts (`export.py`) and the HTTP server (`server.py`)."""

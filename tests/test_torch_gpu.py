@@ -539,3 +539,96 @@ def test_loader_raises_on_bad_files_on_the_card_host(cuda, tmp_path):
     with pytest.raises(ValueError, match=r"missing\.jpg: unreadable file"):
         loader.batch_decode_affine([str(tmp_path / "missing.jpg")], np.zeros((1, 2, 3)),
                                    np.ones((1, 3)), 8)
+
+
+# --------------------------------------------------------------------------
+# export and serving on the card
+# --------------------------------------------------------------------------
+
+SERVED_METERS_TOL = 1e-6  # joints and vertices, exported program vs eager, m
+SERVED_HEAD_TOL = 1e-5    # every other output, absolute and relative (pixels near 1e3):
+                          # the same kernels in the same order
+
+
+@pytest.fixture(scope="module")
+def exported_cliff(tmp_path_factory):
+    """The narrow POCO-CLIFF (V=6890) exported on the card with buckets
+    (1, 4) and uint8 input, loaded back, and its eager model and SMPL
+    (one export for the module: tracing takes tens of seconds)."""
+    from poco_tpu_torch.runtime.export import export_poco, load_exported
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with pytest.MonkeyPatch.context() as mp:
+        model = _narrow(mp, "cliff", "cuda")
+    randomize_batchnorm(model, torch.Generator().manual_seed(1))
+    calibrate_batchnorm(model.backbone, torch.randn(4, 3, 224, 224, device="cuda"))
+    smpl = synthetic_smpl_model(num_verts=6890, device="cuda")
+    out = str(tmp_path_factory.mktemp("exported") / "cliff")
+    export_poco(model, smpl, out, batch_sizes=(1, 4), uint8_input=True, device="cuda")
+    return model, smpl, load_exported(out)
+
+
+def _served_batch(n, seed):
+    rng = np.random.RandomState(seed)
+    return {
+        "img": rng.randint(0, 256, (n, 224, 224, 3)).astype(np.uint8),
+        "bbox_info": (0.3 * rng.randn(n, 3)).astype(np.float32),
+        "focal_length": rng.uniform(800, 1600, n).astype(np.float32),
+        "scale": rng.uniform(0.5, 2.0, n).astype(np.float32),
+        "center": rng.uniform(200, 800, (n, 2)).astype(np.float32),
+        "orig_shape": np.tile(np.asarray([[1080.0, 1920.0]], np.float32), (n, 1)),
+    }
+
+
+def test_export_on_the_card_calls_the_skinning_op(exported_cliff):
+    """The program traced on the card keeps the custom op: the wrapper's
+    fake-tensor trace never reached `data_ptr`, and the loaded graph has
+    one `poco_tpu_torch.skinning` call and no plain blend."""
+    _, _, loaded = exported_cliff
+    assert loaded.meta["device"] == "cuda"
+    targets = [
+        str(node.target)
+        for module in loaded._program.modules() if isinstance(module, torch.fx.GraphModule)
+        for node in module.graph.nodes if node.op == "call_function"
+    ]
+    assert targets.count("poco_tpu_torch.skinning.default") == 1
+
+
+def test_exported_program_launches_skinning_once_per_bucket_dispatch(exported_cliff):
+    """3 crops pad into the 4-bucket (one launch); 9 chunk into 4+4+1
+    (three launches); the yardstick never runs."""
+    _, _, loaded = exported_cliff
+    for n, dispatches in ((3, 1), (9, 3)):
+        before, before_simt = skinning.launches, skinning_simt.launches
+        out = loaded.predict(_served_batch(n, seed=n))
+        assert skinning.launches == before + dispatches
+        assert skinning_simt.launches == before_simt
+        assert out["smpl_vertices"].shape == (n, 6890, 3)
+        assert all(np.isfinite(v).all() for v in out.values())
+
+
+def test_exported_program_matches_eager_on_the_card(exported_cliff):
+    """The program against `model(batch, smpl)` on the same crops (the
+    uint8 crops normalized as the program does), at a bucket's size:
+    joints and vertices within 1e-6 m, every other output within 1e-5
+    absolute and relative."""
+    from poco_tpu_torch.ops.preprocess import normalize_image
+
+    model, smpl, loaded = exported_cliff
+    batch = _served_batch(4, seed=7)
+    got = loaded.predict(batch)
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    tb["img"] = normalize_image(tb["img"].float())
+    with torch.inference_mode():
+        want = {k: v.cpu().numpy() for k, v in model(tb, smpl).items() if v is not None}
+    assert sorted(got) == sorted(want)
+    for key in want:
+        if key in ("smpl_vertices", "smpl_joints3d"):
+            np.testing.assert_allclose(got[key], want[key], atol=SERVED_METERS_TOL, rtol=0,
+                                       err_msg=key)
+        else:
+            np.testing.assert_allclose(got[key], want[key], atol=SERVED_HEAD_TOL,
+                                       rtol=SERVED_HEAD_TOL, err_msg=key)

@@ -35,7 +35,6 @@ from poco_tpu.ops.pallas_lbs import skinning_pallas
 from poco_tpu.ops.rotation import axis_angle_to_rotmat
 from poco_tpu_torch.ops import kernels
 from poco_tpu_torch.ops.skinning import (
-    _SkinningFunction,
     skinning,
     skinning_backward,
     skinning_backward_reference,
@@ -296,17 +295,19 @@ def test_wrapper_on_cpu_takes_the_plain_backward_without_counting():
 def test_lbs_gradients_match_jax_grad(monkeypatch, through):
     """Gradients of a loss on the SMPL vertices and joints with respect to
     betas and the pose rotations, the port against jax.grad of the JAX
-    package's einsum path, at V=6890 and atol 1e-5. `function` routes the
-    port's skinning through the autograd Function that the card uses
-    (forward and backward wrappers, here on their plain versions)."""
+    package's einsum path, at V=6890 and atol 1e-5. `plain` puts
+    `skinning_reference` in the SMPL stage (torch autograd of the einsums);
+    `function` keeps the `poco_tpu_torch::skinning` op and its registered
+    autograd, the `skinning_backward` op, that the card uses (here on their
+    plain versions)."""
     from poco_tpu.smpl.assets import synthetic_smpl_model as jax_synthetic_smpl
     from poco_tpu.smpl.lbs import smpl_forward as jax_smpl_forward
     from poco_tpu_torch.smpl import lbs as lbs_module
     from poco_tpu_torch.smpl.assets import synthetic_smpl_model
     from poco_tpu_torch.smpl.lbs import smpl_forward
 
-    if through == "function":
-        monkeypatch.setattr(lbs_module, "skinning", _SkinningFunction.apply)
+    if through == "plain":
+        monkeypatch.setattr(lbs_module, "skinning", skinning_reference)
     rng = np.random.RandomState(3)
     betas = rng.randn(2, 10).astype(np.float32)
     aa = (0.4 * rng.randn(2 * 24, 3)).astype(np.float32)
