@@ -87,6 +87,25 @@ Phases, each of which raises (exit code 1) on failure:
      `ExportedPoco.predict` on that client's own crops at the bucket its
      wave ran at, to the same tolerances; a compact artifact's fp16
      vertices within 1 mm of the fp32 ones;
+  4i. multi-process (`poco_tpu_torch/parallel/`): (a) `cli.train --dist`
+     (tiny_smoke, one epoch on the smoke JPEGs) and `cli.eval --dist` of
+     its checkpoint under torchrun's environment for one process, an
+     NCCL world of one, against the same runs without --dist (losses and
+     report within rtol 2e-4); (b) two ranks of this script (subprocesses)
+     sharing the card over gloo train POCO-CLIFF (configs/poco_cliff.yaml
+     as it is, phase 4's weights, phase 4f's synthetic samples) for 2
+     steps at the global batch of 64, 32 a rank, and evaluate the fitted
+     weights sharded on phase 4e's first 256 samples; one process fits
+     the same steps (twice: the card's run-to-run difference is printed
+     beside) and evaluates the ranks' fitted weights: per-step losses
+     within rtol 2e-4, the parameter checksum within 1e-5, the first
+     step's summed gradients the same on both ranks and each top-level
+     module's within relative L2 1e-3 of one process's (the backbone's,
+     whose ReLU units flip with rounding, 0.1), every sample's
+     MPJPE / PA-MPJPE / V2V within 1e-4 m; each rank's launches (2 + 1 a
+     step, 5 an evaluation batch) are added to the record; the step time
+     of the ranks against one process and each step's gradient
+     all-reduce (two ranks on one card show correctness, not scaling);
   5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
      (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
      kernel and, in turns, with the plain skinning in its place (the
@@ -106,10 +125,11 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4h). The
-line before the last is the kernels' JSON record (`skinning`,
-`skinning_simt`, `skinning_backward`, `skinning_backward_simt`,
-launches summed over phases 4-4h); the last line is
+The yardsticks never launch on the main paths (checked in 4-4i, in
+every rank). The line before the last is the kernels' JSON record
+(`skinning`, `skinning_simt`, `skinning_backward`,
+`skinning_backward_simt`, launches summed over phases 4-4i and the
+ranks of 4i); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -1150,6 +1170,16 @@ class SyntheticTrainSet:
             "imgname": f"synthetic/{self.names[i]}/{i:05d}.jpg",
         }
 
+    def get_batch(self, indices, keep=None) -> dict:
+        """The rows of `indices` (the kept positions only, with the global
+        batch's `_global_row_names`, for a loader shard: phase 4i)."""
+        indices = [int(i) for i in indices]
+        if keep is None:
+            return collate([self[i] for i in indices])
+        batch = collate([self[i] for i in indices[keep]])
+        batch["_global_row_names"] = [str(self.names[i]) for i in indices]
+        return batch
+
 
 def train_hparams(logdir: str, config: str = "configs/poco_cliff.yaml"):
     hparams = update_hparams(str(REPO / config))
@@ -1999,6 +2029,369 @@ def phase_serving(ctx: dict, card: str) -> Counter:
     return counts
 
 
+# -- multi-process (phase 4i) ---------------------------------------------------
+
+DIST_WORLD = 2            # ranks sharing the one card over gloo
+DIST_STEPS = 2            # steps of the ranks' fit and of one process's (why 2: phase_dist)
+DIST_EVAL_SAMPLES = 256   # phase 4e's first samples, evaluated sharded
+DIST_LOSS_RTOL = 2e-4     # per-step loss, ranks against one process (tests/test_multiprocess.py)
+DIST_PARAM_RTOL = 1e-5    # parameter checksum, the same
+DIST_GRAD_RTOL = {        # a top-level module's step-1 gradient, ranks against one
+    "backbone": 0.1,      # process, relative L2: the backbone's ReLU units flip with
+}                         # fp32 rounding (phase 4f: 1-2% from float64 without the masks)
+DIST_TIMEOUT = 600        # seconds the ranks may take
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_environment():
+    """torchrun's variables for a world of one process on a free localhost
+    port, for `--dist`; the old values restored after."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_clis(tmp: Path) -> dict[str, Counter]:
+    """Phase 4i (a): `cli.train --dist` (tiny_smoke, one epoch on the smoke
+    JPEGs) and `cli.eval --dist` of its checkpoint under torchrun's
+    environment for one process: an NCCL world of one, held to the same
+    runs without --dist (per-step losses and the report's mpjpe, pa_mpjpe,
+    v2v within rtol DIST_LOSS_RTOL)."""
+    tiny, data_dir = str(REPO / "configs" / "tiny_smoke.yaml"), str(REPO / "data")
+    counts, runs = {}, {}
+    for label, extra in (("plain", []), ("dist", ["--dist"])):
+        logdir = str(tmp / f"tiny_{label}")
+        out = io.StringIO()
+        with torchrun_environment(), contextlib.redirect_stdout(out):
+            reset_counts()
+            cli_train.main(["--cfg", tiny, "--logdir", logdir, "--max_epochs", "1",
+                            "--data_dir", data_dir, *extra])
+            counts[f"cli_train_{label}"] = read_counts(f"cli.train {label}")
+        with torchrun_environment(), contextlib.redirect_stdout(out):
+            reset_counts()
+            report = cli_eval.main(["--cfg", tiny, "--ckpt", logdir, "--dataset", "smoke",
+                                    "--data_dir", data_dir, *extra])
+            counts[f"cli_eval_{label}"] = read_counts(f"cli.eval {label}")
+        check(not torch.distributed.is_initialized(), f"cli {label}: a process group was left")
+        worlds = [line for line in out.getvalue().splitlines() if line.startswith("world:")]
+        losses = [r["loss/total_loss"] for r in logged_losses(logdir)]
+        runs[label] = (losses, report["summary"])
+        print(f"cli.train / cli.eval tiny_smoke {label}: {worlds or 'no process group'}; "
+              f"losses {losses}; launches {dict(counts[f'cli_train_{label}'])} / "
+              f"{dict(counts[f'cli_eval_{label}'])}")
+        check(worlds == ([] if label == "plain" else ["world: rank 0 of 1 (backend nccl)"] * 2),
+              f"cli {label}: worlds {worlds}")
+        steps, n_val = len(losses), math.ceil(16 / 4) * EVAL_LAUNCHES[False]
+        check(counts[f"cli_train_{label}"]["skinning_backward"] == steps > 0
+              and counts[f"cli_train_{label}"]["skinning"] == 2 * steps + n_val
+              and counts[f"cli_eval_{label}"]["skinning"] == EVAL_LAUNCHES[False],
+              f"cli {label}: each step must launch skinning 2 and skinning_backward 1 times, "
+              "each evaluation batch skinning 5")
+    (plain, plain_summary), (dist, dist_summary) = runs["plain"], runs["dist"]
+    check(len(plain) == len(dist) > 0
+          and np.allclose(dist, plain, rtol=DIST_LOSS_RTOL, atol=0),
+          f"cli.train --dist losses {dist} against {plain}")
+    for key in ("mpjpe", "pa_mpjpe", "v2v"):
+        check(math.isclose(dist_summary[key], plain_summary[key], rel_tol=DIST_LOSS_RTOL),
+              f"cli.eval --dist {key} {dist_summary[key]} against {plain_summary[key]}")
+    print(f"NCCL world of one: losses and report within rtol {DIST_LOSS_RTOL} of the runs "
+          f"without --dist")
+    return counts
+
+
+def dist_fit(workdir: Path, seed: int, label: str) -> tuple:
+    """Phase 4i's fit in one process of any world: POCO-CLIFF (configs/
+    poco_cliff.yaml as it is, phase 4's weights from workdir/weights.pt)
+    through `Trainer.fit` for DIST_STEPS steps at the config's global
+    batch on phase 4f's synthetic samples. Returns the trainer and the
+    per-step losses, gradient norms and seconds, the seconds of each
+    step's gradient all-reduce, the parameter checksum and the launches;
+    writes the first step's gradients as the optimizer takes them (summed
+    over processes), flat by top-level module, to workdir/grad1_<label>.pt."""
+    from poco_tpu_torch.parallel import distributed
+    from poco_tpu_torch.train.trainer import Trainer
+
+    smpl = synthetic_smpl_model(num_verts=6890, seed=seed, device="cuda")
+    hparams = train_hparams(str(workdir / f"logs_{label}"))
+    batch_size = hparams.DATASET.BATCH_SIZE
+    data = SyntheticTrainSet(DIST_STEPS * batch_size, seed + 31, smpl.to("cpu"))
+    trainer = Trainer(hparams, smpl, train_dataset_fn=lambda epoch: data, device="cuda")
+    trainer.model.load_state_dict(torch.load(workdir / "weights.pt", map_location="cuda"))
+    rec = {"world": distributed.process_count(), "losses": [], "grad_norm": [], "step_s": [],
+           "reduce_s": []}
+    inner_step, inner_reduce = trainer.train_step, distributed.all_reduce_gradients
+    names = {id(p): name for name, p in trainer.model.named_parameters()}
+
+    def timed_step(batch, smpl):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = inner_step(batch, smpl)
+        rec["losses"].append(float(metrics["loss/total_loss"]))
+        rec["grad_norm"].append(float(metrics["grad_norm"]))
+        rec["step_s"].append(time.perf_counter() - start)
+        return metrics
+
+    def timed_reduce(params):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        inner_reduce(params)
+        torch.cuda.synchronize()
+        rec["reduce_s"].append(time.perf_counter() - start)
+        if len(rec["reduce_s"]) == 1:
+            groups = {}
+            for p in params:
+                if p.grad is not None:
+                    groups.setdefault(names[id(p)].split(".")[0], []).append(p.grad.reshape(-1))
+            torch.save({k: torch.cat(v).cpu() for k, v in groups.items()},
+                       workdir / f"grad1_{label}.pt")
+
+    trainer.train_step = timed_step
+    distributed.all_reduce_gradients = timed_reduce   # measured here only
+    try:
+        reset_counts()
+        trainer.fit()
+        rec["counts"] = dict(read_counts(f"dist fit {label}"))
+    finally:
+        distributed.all_reduce_gradients = inner_reduce
+        trainer.close()
+    rec["param_sum"] = sum(float(p.detach().double().abs().sum())
+                           for p in trainer.model.parameters())
+    return trainer, rec
+
+
+def dist_eval(model, seed: int, label: str) -> dict:
+    """`run_eval` of `model` on phase 4e's first DIST_EVAL_SAMPLES samples
+    at its batch, with its three SMPLs (sharded over the world's
+    processes): the per-sample metrics and the launches."""
+    smpls = tuple(synthetic_smpl_model(num_verts=6890, seed=s, device="cuda")
+                  for s in (seed, seed + 11, seed + 12))
+    evaluation = Subset(SyntheticEvalSet(EVAL_SAMPLES, seed + 5), range(DIST_EVAL_SAMPLES))
+    model.eval()
+    reset_counts()
+    result = run_eval(model, evaluation, *smpls, batch_size=EVAL_BATCH,
+                      loss_ver=model.cfg.loss_ver)
+    torch.cuda.synchronize()
+    return {"imgnames": result.imgnames, "eval_counts": dict(read_counts(f"dist eval {label}")),
+            **{key: getattr(result, key).tolist()
+               for key in ("mpjpe_mm", "pa_mpjpe_mm", "v2v_mm")}}
+
+
+def dist_rank(rank: int, workdir: Path, seed: int) -> int:
+    """One of phase 4i's ranks (a subprocess of this script): the fit in a
+    world of DIST_WORLD processes on this card, rank 0 saving the fitted
+    weights, then their sharded evaluation. NCCL refuses two ranks on one
+    device, so the ranks talk over gloo, whose collectives the port
+    stages through host memory."""
+    from poco_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_initialize(coordinator=f"file://{workdir / 'init'}",
+                                 num_processes=DIST_WORLD, process_id=rank, backend="gloo")
+    try:
+        trainer, rec = dist_fit(workdir, seed, f"rank{rank}")
+        if rank == 0:
+            torch.save(trainer.model.state_dict(), workdir / "fitted.pt")
+        rec.update(dist_eval(trainer.model, seed, f"rank{rank}"))
+    finally:
+        distributed.shutdown()
+    with open(workdir / f"rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def run_ranks(workdir: Path, seed: int) -> list[dict]:
+    """Start DIST_WORLD ranks of this script together and wait for all;
+    a rank that fails or outlasts DIST_TIMEOUT fails the phase (the others
+    are killed)."""
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+         "--dist-rank", str(r), "--dist-dir", str(workdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for r in range(DIST_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"dist rank {r} failed (exit {p.returncode}):\n{out[-4000:]}")
+    results = []
+    for r in range(DIST_WORLD):
+        with open(workdir / f"rank{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def rel_diffs(a, b) -> list[float]:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (np.abs(a - b) / np.abs(b)).tolist()
+
+
+def dist_gradient_faults(grads: dict, ranks: list[str]) -> list[str]:
+    """The first step's gradients as the optimizer takes them: the same
+    on every rank (every rank applies one update), and each top-level
+    module's within relative L2 DIST_GRAD_RTOL (else GRAD_GROUP_RTOL, as
+    phase 4f) of one process's. A rank that skipped the sum over
+    processes would hold its own rows' share: off by tens of percent
+    (PERF.md, section 6, the multi-GPU findings). Prints each module's
+    distance, with the second one-process fit's beside it (the card's own
+    run-to-run difference); returns what failed."""
+    one, faults = grads["one"], []
+    if any(grads[label].keys() != one.keys() for label in ranks):
+        return ["the ranks' gradients are of other modules than one process's"]
+    for label in ranks[1:]:
+        diff = max(float((grads[label][k] - grads[ranks[0]][k]).abs().max()) for k in one)
+        if diff != 0.0:
+            faults.append(f"{label}'s step-1 gradients differ from {ranks[0]}'s by up to {diff}")
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    for k in one:
+        pair, again = rel(grads[ranks[0]][k], one[k]), rel(grads["again"][k], one[k])
+        bar = DIST_GRAD_RTOL.get(k, GRAD_GROUP_RTOL)
+        print(f"step-1 gradient {k} ({one[k].numel()} values): {len(ranks)} ranks vs one process "
+              f"relative L2 {pair:.3e} (tolerance {bar}); one process again {again:.3e}")
+        if pair > bar:
+            faults.append(f"the step-1 {k} gradient is {pair:.3e} from one process's")
+    return faults
+
+
+def phase_dist(ctx: dict, seed: int, card: str) -> dict[str, Counter]:
+    """Phase 4i: (a) both CLIs with --dist in an NCCL world of one; (b)
+    DIST_WORLD gloo ranks sharing the card train POCO-CLIFF at full width
+    (global batch 64, 32 a rank) and evaluate the fitted weights sharded,
+    held to one process: per-step losses within DIST_LOSS_RTOL, the
+    parameter checksum within DIST_PARAM_RTOL and the first step's summed
+    gradients (`check_dist_gradients`) of one process's fit on the same
+    steps, and every sample's MPJPE / PA-MPJPE / V2V within
+    METERS_TOL of one process's evaluation of the same fitted weights. A
+    second one-process fit gives the card's own run-to-run difference
+    beside the ranks'. The fit stops at DIST_STEPS = 2: the pair's
+    arithmetic differs from one process's (its own batch norm, sums in
+    another order), and Adam's first steps move each weight by about the
+    learning rate in the sign of its gradient, so gradients that differ a
+    little where they are near zero move weights apart by whole steps;
+    by the third step the pair's loss is past the loss bar (PERF.md
+    section 6, the multi-GPU findings). Two ranks on one card show correctness, not
+    scaling. Returns the launches of every run, the ranks' summed."""
+    import tempfile
+
+    print("== 4i. multi-process: --dist on NCCL (world of one); two gloo ranks on the card")
+    phase_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        tmp = Path(tmp)
+        counts = dist_clis(tmp)
+        torch.save(ctx["model"].state_dict(), tmp / "weights.pt")
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        ranks = run_ranks(tmp, seed)
+        pair_s = time.perf_counter() - start
+        start = time.perf_counter()
+        trainer, one = dist_fit(tmp, seed, "one")
+        one_s = time.perf_counter() - start
+        _, again = dist_fit(tmp, seed, "again")
+        grads = {label: torch.load(tmp / f"grad1_{label}.pt")
+                 for label in [f"rank{r}" for r in range(DIST_WORLD)] + ["one", "again"]}
+        trainer.model.load_state_dict(torch.load(tmp / "fitted.pt", map_location="cuda"))
+        one.update(dist_eval(trainer.model, seed, "one"))
+        del trainer
+        torch.cuda.empty_cache()
+
+    fit_want = {"skinning": TRAIN_LAUNCHES[0] * DIST_STEPS,
+                "skinning_backward": TRAIN_LAUNCHES[1] * DIST_STEPS}
+    eval_want = {"skinning": EVAL_LAUNCHES[False] * math.ceil(DIST_EVAL_SAMPLES / EVAL_BATCH),
+                 "skinning_backward": 0}
+    pair = Counter()
+    for label, res in [(f"rank {r}", res) for r, res in enumerate(ranks)] + [("one", one)]:
+        for key, want in (("counts", fit_want), ("eval_counts", eval_want)):
+            got = res[key]
+            check(got.get("skinning_simt", 0) == 0 and got.get("skinning_backward_simt", 0) == 0,
+                  f"dist {label}: a yardstick kernel ran: {got}")
+            check(all(got.get(k, 0) == v for k, v in want.items()),
+                  f"dist {label} {key}: launches {got}, not {want}")
+    for res in ranks:
+        pair.update(res["counts"])
+        pair.update(res["eval_counts"])
+    counts["dist_pair"] = pair
+    counts["dist_one"] = Counter(one["counts"]) + Counter(one["eval_counts"])
+    counts["dist_again"] = Counter(again["counts"])
+    print(f"launches: each rank {ranks[0]['counts']} fitting, {ranks[0]['eval_counts']} "
+          f"evaluating; one process {one['counts']} + {one['eval_counts']}")
+
+    check(all(res["world"] == DIST_WORLD for res in ranks) and one["world"] == 1,
+          f"dist: worlds {[res['world'] for res in ranks]}, {one['world']}")
+    rel = rel_diffs(ranks[0]["losses"], one["losses"])
+    print(f"per-step total loss: {DIST_WORLD} ranks {ranks[0]['losses']}, one process "
+          f"{one['losses']}, relative {rel} (tolerance {DIST_LOSS_RTOL}); one process again "
+          f"{again['losses']}, relative {rel_diffs(again['losses'], one['losses'])}")
+    print(f"gradient norm by step: {DIST_WORLD} ranks {ranks[0]['grad_norm']}, one process "
+          f"{one['grad_norm']} (relative {rel_diffs(ranks[0]['grad_norm'], one['grad_norm'])}), "
+          f"again relative {rel_diffs(again['grad_norm'], one['grad_norm'])}")
+    sums = [res["param_sum"] for res in ranks]
+    err = max(rel_diffs(sums, [one["param_sum"]] * len(sums)))
+    print(f"parameter checksum (sum |w|): ranks {sums}, one process {one['param_sum']}, "
+          f"relative {err:.3e} (tolerance {DIST_PARAM_RTOL}); again "
+          f"{rel_diffs([again['param_sum']], [one['param_sum']])[0]:.3e}")
+    # every reading is printed before the first of these checks fails
+    faults = dist_gradient_faults(grads, [f"rank{r}" for r in range(DIST_WORLD)])
+    if not all(res["losses"] == ranks[0]["losses"] for res in ranks):
+        faults.append("the ranks log other global losses")
+    if not (len(rel) == DIST_STEPS and max(rel) <= DIST_LOSS_RTOL):
+        faults.append("per-step losses differ from one process")
+    if err > DIST_PARAM_RTOL:
+        faults.append("the fitted weights' checksum differs from one process's")
+    check(not faults, f"dist: {'; '.join(faults)}")
+    for r, res in enumerate(ranks):
+        check(res["imgnames"] == one["imgnames"] and len(one["imgnames"]) == DIST_EVAL_SAMPLES,
+              f"dist rank {r}: sample names differ")
+        worst = {key: float(np.abs(np.asarray(res[key]) - one[key]).max()) / 1000.0
+                 for key in ("mpjpe_mm", "pa_mpjpe_mm", "v2v_mm")}
+        print(f"dist rank {r}: the fitted weights' {DIST_EVAL_SAMPLES} samples evaluated "
+              f"sharded, largest difference to one process (m) {worst} (tolerance {METERS_TOL})")
+        check(all(v <= METERS_TOL for v in worst.values()),
+              f"dist rank {r}: per-sample metrics differ from one process: {worst}")
+
+    def ms(ts):
+        return (f"median {1e3 * statistics.median(ts):.3f} ms (min {1e3 * min(ts):.3f}, "
+                f"max {1e3 * max(ts):.3f}) over {len(ts)}")
+
+    for r, res in enumerate(ranks):
+        print(f"dist rank {r}: train step (32 rows, two ranks on one card) "
+              f"{[round(1e3 * t, 3) for t in res['step_s']]} ms; gradient all-reduce (gloo, "
+              f"staged through host) {[round(1e3 * t, 3) for t in res['reduce_s']]} ms on {card}")
+    print(f"dist step time: {DIST_WORLD} ranks {ms([t for res in ranks for t in res['step_s']])}"
+          f"; one process (batch 64) {ms(one['step_s'] + again['step_s'])}; gradient "
+          f"all-reduce {ms([t for res in ranks for t in res['reduce_s']])}; first steps "
+          f"included; the ranks {pair_s:.3f} s (start-up and evaluation included), one "
+          f"process's fit {one_s:.3f} s; on {card}. Two ranks on one card show correctness, "
+          f"not scaling.")
+    print(f"phase 4i: {time.perf_counter() - phase_start:.3f} s")
+    return counts
+
+
 def timed_requests(run, reps: int) -> list[float]:
     times = []
     for _ in range(reps):
@@ -2199,10 +2592,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.dist_rank is not None:  # one of phase 4i's ranks
+        return dist_rank(args.dist_rank, Path(args.dist_dir), args.seed)
     card, peaks = phase_environment()
     phase_build()
     errs = phase_kernel_check()
@@ -2218,6 +2615,7 @@ def main() -> int:
     images = phase_images(ctx, train, args.seed, card)
     paths.update(images["counts"])
     paths["serving"] = phase_serving(ctx, card)
+    paths.update(phase_dist(ctx, args.seed, card))
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)

@@ -1,10 +1,10 @@
-"""Evaluation CLI: a 3DPW-style test on one device (the port's counterpart
-of the repo's `eval.py`).
+"""Evaluation CLI: a 3DPW-style test (the port's counterpart of the repo's
+`eval.py`).
 
     python -m poco_tpu_torch.cli.eval --cfg configs/poco_cliff.yaml [--cfg_id N] \\
         --ckpt <.pt file or a logdir holding one> [--dataset 3dpw] \\
         [--data_dir data] [--smpl_dir DIR] [--batch_size 64] [--out report.json] \\
-        [--flip_test] [--device cuda|cpu]
+        [--flip_test] [--device cuda|cpu] [--dist]
 
 Prints (and with --out writes) one JSON report: `summary` (mpjpe,
 pa_mpjpe, v2v in mm, best_model_metric and, with an uncertainty head, the
@@ -13,6 +13,10 @@ and `per_joint`. The H36M regressor is used when the data dir holds
 `J_regressor_h36m.npy`; otherwise the 14 joints come from the SMPL
 skeleton. TF32 is switched off for cuBLAS and cuDNN before the first
 kernel, so the numbers are fp32's.
+
+Over several processes (the POCO_* variables, or `--dist` under torchrun;
+see `cli/train.py`) each runs its share of every batch, the per-sample
+metrics are gathered, and rank 0 prints and writes the report.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import os
 
 import numpy as np
 import torch
+
+from ..parallel import distributed as dist
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -46,12 +52,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--dist", action="store_true",
+                        help="form the process group from torchrun's environment (the "
+                             "POCO_* variables form it without this flag); metrics are "
+                             "gathered over processes, rank 0 prints and writes the report")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    dist.form_world(args.device, auto=args.dist)
+    try:
+        return _evaluate(args)
+    finally:
+        dist.shutdown()
 
+
+def _evaluate(args) -> dict:
     from ..device import resolve_device
 
     device = resolve_device(args.device)
@@ -126,10 +143,13 @@ def main(argv=None) -> dict:
     per_joint = result.per_joint_stats()
     if per_joint is not None:
         payload["per_joint"] = per_joint
-    print(json.dumps(payload, indent=1))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(payload, f, indent=1)
+    # every process holds the gathered report; rank 0 prints and writes it
+    if dist.is_main_process():
+        print(json.dumps(payload, indent=1))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(payload, f, indent=1)
+    dist.barrier()
     return payload
 
 

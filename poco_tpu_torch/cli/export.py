@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="program takes raw uint8 crops and normalizes on the device "
                          "(4x smaller request uploads)")
     ap.add_argument("--data_parallel", type=int, default=None,
-                    help="not ported (ROADMAP.md queue A item 2.4)")
+                    help="not ported (ROADMAP.md queue A item 3)")
     ap.add_argument("--platforms", default=None,
                     help="not ported: an artifact serves on its export device")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -1,10 +1,9 @@
-"""Training CLI on one device (the port's counterpart of the repo's
-`train.py`).
+"""Training CLI (the port's counterpart of the repo's `train.py`).
 
     python -m poco_tpu_torch.cli.train --cfg configs/poco_cliff.yaml \\
         [--cfg_id 0] [--data_dir data] [--smpl_dir DIR] [--max_epochs N] \\
         [--resume <logdir>/last] [--logdir DIR] [--pretrained X.pt] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--dist]
 
 Expands the config's grid search and takes experiment `--cfg_id`, seeds,
 sets up the logdir (a timestamped one under LOG_DIR unless `--logdir`
@@ -17,8 +16,14 @@ best_model_mpjpe_var,epoch_NNN}.pt`, each with a `.trainer.json` sidecar;
 `best_model`. TF32 is switched off for cuBLAS and cuDNN, so training runs
 in fp32 (or bf16 autocast with TRAINING.PRECISION: 16).
 
-Not ported yet: `--dist` (multi-GPU training) and `--make_launcher`
-(grid-search launchers); both are refused.
+Multi-GPU: one process a card, over NCCL (gloo with `--device cpu`),
+formed before the first CUDA use by `parallel.distributed.
+maybe_initialize`: with POCO_COORDINATOR / POCO_NUM_PROCESSES /
+POCO_PROCESS_ID set, or with `--dist` under torchrun
+(`torchrun --nproc_per_node N -m poco_tpu_torch.cli.train --dist ...`).
+DATASET.BATCH_SIZE stays the global batch; rank 0 writes the logs and
+checkpoints and prints. Not ported yet: `--make_launcher` (grid-search
+launchers), refused.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import argparse
 import os
 
 import torch
+
+from ..parallel import distributed as dist
 
 
 def build_train_dataset_factory(hparams, options):
@@ -100,7 +107,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--pretrained", default=None,
                         help="warm-start weights (torch .pt); overrides TRAINING.PRETRAINED")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--dist", action="store_true", help="not ported yet: refused")
+    parser.add_argument("--dist", action="store_true",
+                        help="form the process group from torchrun's environment (the "
+                             "POCO_* variables form it without this flag)")
     parser.add_argument("--make_launcher", default=None, choices=["bash", "slurm"],
                         help="not ported yet: refused")
     return parser.parse_args(argv)
@@ -108,16 +117,19 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.dist:
-        raise SystemExit(
-            "--dist: multi-GPU training (torch.distributed) comes with a later slice of the port"
-        )
     if args.make_launcher:
         raise SystemExit(
             "--make_launcher: grid-search launchers (utils/cluster.py) come with a later "
             "slice of the port; run one --cfg_id at a time"
         )
+    dist.form_world(args.device, auto=args.dist)
+    try:
+        return _train(args)
+    finally:
+        dist.shutdown()
 
+
+def _train(args) -> dict:
     from ..device import resolve_device
 
     device = resolve_device(args.device)
@@ -128,7 +140,14 @@ def main(argv=None) -> dict:
     from ..smpl.assets import resolve_smpl_params
     from ..train.trainer import Trainer
 
-    hparams = run_grid_search_experiments(args.cfg, args.cfg_id, logdir=args.logdir)
+    logdir = args.logdir
+    if dist.process_count() > 1 and logdir is None:
+        # one timestamped logdir for all processes: rank 0's
+        logdir = dist.broadcast_object(
+            run_grid_search_experiments(args.cfg, args.cfg_id, log=False).LOG_DIR
+            if dist.is_main_process() else None)
+    hparams = run_grid_search_experiments(args.cfg, args.cfg_id, log=dist.is_main_process(),
+                                          logdir=logdir)
     if args.data_dir:
         hparams.DATASET.DATA_DIR = args.data_dir
     if args.pretrained:
@@ -147,7 +166,8 @@ def main(argv=None) -> dict:
         if args.resume:
             trainer.load_checkpoint(args.resume)
         summary = trainer.fit(args.max_epochs)
-        print("final:", summary)
+        if dist.is_main_process():
+            print("final:", summary)
         # RUN_TEST: the best checkpoint evaluated at the end (reference
         # train.py:98-106)
         if hparams.RUN_TEST and val_dataset is not None:
@@ -155,7 +175,8 @@ def main(argv=None) -> dict:
             if os.path.exists(best + ".pt"):
                 trainer.load_checkpoint(best)
             summary = trainer.validate(trainer.epoch)
-            print("test:", summary)
+            if dist.is_main_process():
+                print("test:", summary)
     finally:
         trainer.close()
     return summary

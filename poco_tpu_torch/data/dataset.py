@@ -1,5 +1,5 @@
 """npz-annotation dataset and batching on the host (port of
-`poco_tpu.data.dataset` for one process).
+`poco_tpu.data.dataset`).
 
 Reference contract: pocolib/dataset/base_dataset.py. The npz schema is
 unchanged: imgname, center, scale, and optionally pose (72), shape (10),
@@ -10,22 +10,25 @@ and cropped by the port's loader (`runtime/loader.py`, no OpenCV): a
 whole batch at once on its C++ thread pool (`get_batch`, which the
 `DataLoader` uses), or one item at a time through the same decode and
 warp, so both give the same crops. Synthetic occlusion (`occluders=`)
-pastes `data/occlusion.py`'s patches with its own random stream.
-
-Not ported yet: the loader's sharding over processes.
+pastes `data/occlusion.py`'s patches with its own random stream. The
+`DataLoader` shards each global batch over processes (`num_shards`,
+`shard_index`), as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import queue
 import threading
 import time
+import warnings
 from typing import Any, Iterator
 
 import numpy as np
 
 from ..constants import IMG_RES
+from ..parallel.mesh import shard_bounds
 from ..runtime import loader
 from . import occlusion
 from .transforms import (
@@ -355,11 +358,19 @@ class ResumableSampler:
 
 
 class DataLoader:
-    """Batches of one process, assembled on a background thread that
-    keeps up to `prefetch` batches ready. The order is shuffled by a
-    generator seeded with `seed` (the trainer passes the epoch, so a
-    resumed epoch repeats its order); a dataset with `get_batch` reads a
-    whole batch at once."""
+    """Batches assembled on a background thread that keeps up to
+    `prefetch` batches ready. The order is shuffled by a generator seeded
+    with `seed` (the trainer passes the epoch, so a resumed epoch repeats
+    its order); a dataset with `get_batch` reads a whole batch at once.
+
+    Sharding over processes: with `num_shards` / `shard_index` (one shard
+    a process), every process draws the same global order and yields its
+    contiguous rows of each global batch; `batch_size` stays the global
+    batch. A dataset whose `get_batch` takes `keep=` draws its per-row
+    randomness for the whole global batch and builds only the kept rows
+    (with `_global_row_names`), so the shards together are the one-process
+    batch; another dataset is sliced, with a warning.
+    """
 
     def __init__(
         self,
@@ -369,13 +380,26 @@ class DataLoader:
         drop_last: bool = True,
         prefetch: int = 2,
         seed: int = 0,
+        num_shards: int = 1,
+        shard_index: int = 0,
     ):
+        if batch_size % num_shards:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by {num_shards} loader shards"
+            )
+        if num_shards > 1 and not drop_last:
+            raise ValueError(
+                "sharded loading requires drop_last=True (a short final "
+                "batch cannot be split evenly across processes)"
+            )
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.rng = np.random.RandomState(seed)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -400,13 +424,32 @@ class DataLoader:
                     pass
             return False
 
+        get_batch = getattr(self.dataset, "get_batch", None)
+        sharded = self.num_shards > 1
+        keeps = get_batch is not None and "keep" in inspect.signature(get_batch).parameters
+        if sharded and not keeps and not getattr(type(self), "_warned_keepless_shard", False):
+            # every process would consume the same augmentation stream on
+            # other rows: the shards are then not the one-process batch
+            type(self)._warned_keepless_shard = True
+            warnings.warn(
+                f"{type(self.dataset).__name__} has no get_batch(..., keep=...): sharded "
+                "loading falls back to index slicing with a shared augmentation RNG "
+                "stream — augmentations will be correlated across processes and differ "
+                "from a single-process run", stacklevel=2,
+            )
+        lo, hi = shard_bounds(self.batch_size, self.num_shards, self.shard_index)
+
         def producer():
             try:
                 for b in range(n_batches):
                     idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
-                    get_batch = getattr(self.dataset, "get_batch", None)
-                    batch = (get_batch(idxs) if get_batch is not None
-                             else collate([self.dataset[int(i)] for i in idxs]))
+                    if sharded and keeps:
+                        batch = get_batch(idxs, keep=slice(lo, hi))
+                    else:
+                        if sharded:
+                            idxs = idxs[lo:hi]
+                        batch = (get_batch(idxs) if get_batch is not None
+                                 else collate([self.dataset[int(i)] for i in idxs]))
                     if not put(batch):
                         return
             except Exception as e:  # handed to the consumer, raised there

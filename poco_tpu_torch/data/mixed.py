@@ -1,5 +1,5 @@
 """Dataset mixing: ratio-sampled multi-dataset training (port of
-`poco_tpu.data.mixed`, one process).
+`poco_tpu.data.mixed`).
 
 Reference contracts:
   * EFTMixedDataset: the "h36m_coco_mpii_0.5_0.3_0.2" spec parsed into
@@ -12,6 +12,8 @@ Reference contracts:
 """
 
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 
@@ -75,30 +77,54 @@ class RatioMixedDataset:
         i = self._pick()
         return self.datasets[i][index % len(self.datasets[i])]
 
-    def get_batch(self, indices) -> dict:
+    def get_batch(self, indices, keep=None) -> dict:
         """A whole batch: the members drawn for every index first, then
         each member's share read (through its own `get_batch` where it has
         one), reassembled in request order; the JAX package's order of
-        random draws for one process."""
+        random draws.
+
+        keep: positions (a slice or a list) of the rows to build, for
+        sharded loading. The members are still drawn for every index and
+        each member draws its per-row randomness over its whole global
+        share, so every process sees the one-process batch's composition
+        and augmentations; only the kept rows are decoded. The result then
+        carries `_global_row_names` (the member's dataset name of every
+        global row).
+        """
         from .dataset import collate
 
         indices = [int(i) for i in indices]
         choices = [self._pick() for _ in indices]
-        items: list = [None] * len(indices)
+        names = None
+        sel = list(range(len(indices)))
+        if keep is not None:
+            names = [getattr(self.datasets[c], "dataset_name", f"ds{c}") for c in choices]
+            sel = sel[keep] if isinstance(keep, slice) else [int(k) for k in keep]
+        slot = {k: j for j, k in enumerate(sel)}  # global position -> output row
+        items: list = [None] * len(sel)
         for di, ds in enumerate(self.datasets):
             pos = [k for k, c in enumerate(choices) if c == di]
             if not pos:
                 continue
             local = [indices[k] % len(ds) for k in pos]
+            kept = [r for r, k in enumerate(pos) if k in slot]
             sub_get = getattr(ds, "get_batch", None)
-            if sub_get is not None:
+            if sub_get is not None and len(kept) == len(pos):
                 sub = sub_get(local)
                 for j, k in enumerate(pos):
-                    items[k] = {key: sub[key][j] for key in sub}
+                    items[slot[k]] = {key: sub[key][j] for key in sub}
+            elif sub_get is not None and "keep" in inspect.signature(sub_get).parameters:
+                sub = sub_get(local, keep=kept)
+                keys = [key for key in sub if key != "_global_row_names"]
+                for j, r in enumerate(kept):
+                    items[slot[pos[r]]] = {key: sub[key][j] for key in keys}
             else:
-                for k, i in zip(pos, local):
-                    items[k] = ds[i]
-        return collate(items)
+                for r in kept:
+                    items[slot[pos[r]]] = ds[local[r]]
+        batch = collate(items)
+        if names is not None:
+            batch["_global_row_names"] = names
+        return batch
 
 
 def spin_mixed_partition(dataset_lengths: list[int]) -> list[float]:

@@ -1,5 +1,5 @@
-"""Evaluation on one device: dataset -> per-sample metrics -> reports (port
-of `poco_tpu.eval.runner`).
+"""Evaluation: dataset -> per-sample metrics -> reports (port of
+`poco_tpu.eval.runner`).
 
 Replaces the reference's validation/test loop (pocolib/core/trainer.py:
 298-465) and its offline pkl re-slicer (pocolib/utils/compute_error.py:
@@ -11,7 +11,11 @@ Replaces the reference's validation/test loop (pocolib/core/trainer.py:
     launches the skinning kernel;
   * Procrustes alignment is one batched SVD;
   * each batch goes to the device once and its per-sample metrics come
-    back once.
+    back once;
+  * over several processes (`parallel.distributed`) every process loads
+    the whole batch, runs its contiguous rows of it (padded to a multiple
+    of the process count) and gathers the per-sample metrics of all, so
+    every process holds the one-process result.
 
 Numbers are fp32 throughout; callers keep TF32 off for both cuBLAS and
 cuDNN (`python -m poco_tpu_torch.cli.eval` does), as the JAX package runs
@@ -34,6 +38,8 @@ from ..constants import (
 )
 from ..ops.preprocess import normalize_image
 from ..ops.rotation import average_rotmats, axis_angle_to_rotmat, flip_pose_rotmat
+from ..parallel import distributed
+from ..parallel.mesh import pad_to_multiple
 from ..smpl.lbs import SmplParams, smpl_forward
 from ..train.step import best_model_metric
 from .metrics import (
@@ -268,10 +274,12 @@ def run_eval(
 
     The SMPLs and the regressor must lie on the model's device. Each
     batch's arrays go to it once, the image normalized there; string
-    lists stay on the host.
+    lists stay on the host. Over several processes each runs its share of
+    every batch (collective: every process must call it).
     """
     from ..data.dataset import DataLoader
 
+    world = distributed.process_count()
     device = next(model.parameters()).device
     smpl_male = smpl_male or smpl_neutral
     smpl_female = smpl_female or smpl_neutral
@@ -285,19 +293,26 @@ def run_eval(
             break
         n_valid = host_batch["pose"].shape[0]
         names.extend(_sample_names(host_batch, n_valid, len(names)))
+        arrays = {k: np.asarray(v) for k, v in host_batch.items() if not isinstance(v, list)}
+        if world > 1:
+            arrays = {k: pad_to_multiple(v, world)[0] for k, v in arrays.items()}
+            lo, hi = distributed.local_shard_bounds(len(arrays["pose"]))
+            arrays = {k: v[lo:hi] for k, v in arrays.items()}
         batch = {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-            for k, v in host_batch.items() if not isinstance(v, list)
+            for k, v in arrays.items()
         }
         if "img" in batch:
             batch["img"] = normalize_image(batch["img"].float())
         metrics = step(batch, smpl_neutral, smpl_male, smpl_female)
-        # one copy back a batch: the metrics packed side by side
+        # one copy back a batch: the metrics packed side by side (and
+        # gathered over processes, the padding rows dropped)
+        rows = len(batch["pose"])
         widths = [v[0].numel() for v in metrics.values()]
-        packed = torch.cat([v.reshape(n_valid, -1).float() for v in metrics.values()], 1)
-        host = packed.cpu().numpy()
+        packed = torch.cat([v.reshape(rows, -1).float() for v in metrics.values()], 1)
+        host = distributed.allgather(packed.cpu().numpy())[:n_valid]
         for (k, v), part in zip(metrics.items(), np.split(host, np.cumsum(widths)[:-1], 1)):
-            accum.setdefault(k, []).append(part.reshape(v.shape))
+            accum.setdefault(k, []).append(part.reshape((n_valid, *v.shape[1:])))
 
     mpj = np.concatenate(accum["mpjpe"]) * 1000.0
     pa = np.concatenate(accum["pa_mpjpe"]) * 1000.0

@@ -6,6 +6,12 @@ reference's boolean indexing (`x[has_smpl == 1]`) is not used, so a batch
 with no selected row gives 0 and not NaN, and the loss has the same
 terms whatever the batch holds.
 
+With more than one process every mean is over the global batch, as the
+JAX package takes it over a batch sharded across chips: each process's
+loss is its share (its rows' sum over the global denominator), the
+shares sum to the one-process loss, and the train step sums the
+gradients over processes (`parallel.distributed`).
+
 GT dict keys (tensors on the model's device):
     pose          (B, 72) axis-angle SMPL pose
     betas         (B, 10)
@@ -29,6 +35,7 @@ from typing import Any
 import torch
 
 from ..ops.rotation import axis_angle_to_rotmat
+from ..parallel import distributed
 
 _EPS = 1e-8
 
@@ -72,12 +79,25 @@ class LossConfig:
         return self.pose_loss_weight
 
 
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of x over the global batch: with more than one process, this
+    process's share of it (its rows' sum over the global count; every
+    process holds as many rows), so that the shares sum to the mean."""
+    world = distributed.process_count()
+    if world == 1:
+        return x.mean()
+    return x.sum() / (x.numel() * world)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x over the rows where mask (B,) is 1; 0 if none is."""
+    """Mean of x over the rows where mask (B,) is 1; 0 if none is. With
+    more than one process the rows are the global batch's: this process's
+    share (its rows' sum over the global count of masked entries)."""
     mask = mask.to(x.dtype)
     weighted = x * mask.reshape((-1,) + (1,) * (x.ndim - 1))
     per_row = x[0].numel()
-    return weighted.sum() / torch.clamp(mask.sum() * per_row, min=1.0)
+    count = distributed.all_reduce_sum_(mask.sum()) * per_row
+    return weighted.sum() / torch.clamp(count, min=1.0)
 
 
 def projected_keypoint_loss(
@@ -178,7 +198,7 @@ def smpl_losses_uncertainty(
     if var_pose is not None:
         loss_pose_no_uncert = masked_mean(sq_err, no_uncert)
         loss_gt_var = masked_mean(var_pose, no_uncert)
-        any_cond = no_uncert.any().to(loss_pose.dtype)
+        any_cond = (distributed.all_reduce_sum_(no_uncert.sum()) > 0).to(loss_pose.dtype)
         loss_pose = loss_pose + any_cond * (loss_pose_no_uncert + loss_gt_var)
 
     return loss_pose, loss_betas
@@ -213,11 +233,11 @@ def poco_loss(
             pred_norm, gt_norm, cfg.openpose_train_weight, cfg.gt_train_weight
         )
         scale_w = img_size[:, 0, :] / (gt["scale"] * 200.0)[:, None]
-        loss_keypoints = (kp_loss * scale_w[:, None, :]).mean()
+        loss_keypoints = batch_mean(kp_loss * scale_w[:, None, :])
     else:
-        loss_keypoints = projected_keypoint_loss(
+        loss_keypoints = batch_mean(projected_keypoint_loss(
             pred_kp2d, gt["keypoints"], cfg.openpose_train_weight, cfg.gt_train_weight
-        ).mean()
+        ))
 
     loss_regr_pose, loss_regr_betas = smpl_losses_uncertainty(
         pred["pred_pose"], pred["pred_shape"], gt["pose"], gt["betas"],
@@ -225,7 +245,7 @@ def poco_loss(
     )
     loss_keypoints_3d = keypoint_3d_loss(pred["smpl_joints3d"], gt["pose_3d"], has_pose_3d)
     loss_shape = shape_loss(pred["smpl_vertices"], gt["vertices"], has_smpl)
-    loss_cam = torch.mean(torch.exp(-pred["pred_cam"][:, 0] * 10.0) ** 2) * 0.016
+    loss_cam = batch_mean(torch.exp(-pred["pred_cam"][:, 0] * 10.0) ** 2) * 0.016
 
     loss_dict = {
         "loss/loss_keypoints": loss_keypoints * cfg.keypoint2d_loss_weight,

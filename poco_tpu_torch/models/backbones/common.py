@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import distributed
+
 BN_MOMENTUM = 0.1
 
 
@@ -44,14 +46,53 @@ class FlaxVarianceBN:
     torch's own update runs in the layer; `flax_variance_update` corrects
     it for all of a model's layers at once around the model's forward. The
     layer only records the n it normalized over while that is active.
+
+    In training with more than one process the statistics are the global
+    batch's, as flax takes them over a batch sharded across chips
+    (`_global_forward`); n is then the global count.
     """
 
     batch_counts: list[int] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and distributed.process_count() > 1:
+            return self._global_forward(x)
         if self.batch_counts is not None:
             self.batch_counts.append(x.numel() // x.shape[1])
         return super().forward(x)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Batch norm over the rows of every process (each holds as many).
+
+        Two passes, each a sum over processes that carries a gradient
+        (`distributed.all_reduce_sum`: two collectives a forward, two in
+        the backward): the per-channel mean, then the mean square of x
+        less it, so the biased variance is as precise as one process's.
+        In fp32; the running statistics move as torch's layer moves them,
+        with the global n."""
+        self._check_input_dim(x)
+        c = x.shape[1]
+        dims = [0, *range(2, x.ndim)]
+        view = (1, c) + (1,) * (x.ndim - 2)
+        xf = x.float()
+        n = x.numel() // c * distributed.process_count()
+        mean = distributed.all_reduce_sum(xf.sum(dims)) / n
+        xc = xf - mean.view(view)
+        var = distributed.all_reduce_sum((xc * xc).sum(dims)) / n
+        y = xc * torch.rsqrt(var + self.eps).view(view)
+        if self.affine:
+            y = y * self.weight.view(view) + self.bias.view(view)
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                f = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                     else self.momentum)
+                self.running_mean.mul_(1.0 - f).add_(mean.to(self.running_mean.dtype), alpha=f)
+                self.running_var.mul_(1.0 - f).add_(
+                    (var * (n / max(n - 1, 1))).to(self.running_var.dtype), alpha=f)
+            if self.batch_counts is not None:
+                self.batch_counts.append(n)
+        return y.to(x.dtype)
 
 
 @contextlib.contextmanager

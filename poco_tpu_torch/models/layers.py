@@ -14,13 +14,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed
+
 
 def dropout_keep_mask(x: torch.Tensor, keep: float) -> torch.Tensor:
     """The keep mask of `Dropout`: True with probability `keep`, drawn
     from torch's generator for `x`'s device. A module-level function so
     that a test can feed every dropout layer one mask (all-keep, for
-    parity with the JAX package, whose random bits torch cannot repeat)."""
-    return torch.rand(x.shape, device=x.device) < keep
+    parity with the JAX package, whose random bits torch cannot repeat).
+
+    x holds this process's rows of the global batch (each process as
+    many): every process draws the mask of the whole global batch from its
+    generator, which every process seeds alike, and keeps its own rows, so
+    the processes drop what one process would drop."""
+    rows = x.shape[0]
+    full = torch.rand((rows * distributed.process_count(), *x.shape[1:]), device=x.device)
+    lo = distributed.process_index() * rows
+    return full[lo:lo + rows] < keep
 
 
 class Dropout(nn.Module):

@@ -26,7 +26,7 @@ The program holds the device it was exported on (its weights, and
 constants such as `torch.eye(3, device=...)`), so an artifact serves on
 that device type only: exported on the card, it serves on the card, and
 a CPU artifact serves on the CPU. Not ported, and refused with an error:
-data-parallel artifacts (ROADMAP queue A item 2.4), bf16 export (queue A
+data-parallel artifacts (ROADMAP queue A item 3), bf16 export (queue A
 item 6: the port's gated precision is fp32 with TF32 off) and lowering
 for another platform than the export device (the JAX format's "export on
 one platform, serve on another", queue A item 3).
@@ -130,7 +130,7 @@ def export_poco(
     Returns out_dir.
     """
     if data_parallel:
-        raise not_ported("data-parallel export", "item 2.4, multi-GPU")
+        raise not_ported("data-parallel export", "item 3, serving and export")
     if platforms is not None:
         raise not_ported(
             "export for another platform than the export device", "item 3, serving and export"

@@ -11,7 +11,10 @@ Replaces the reference's LitModule.training_step / validation_step
     TRAIN_STAGES, so a profile splits the step's device time by stage.
 
 On a CUDA device a step launches the skinning kernel twice (the GT mesh
-and the prediction) and its backward kernel once.
+and the prediction) and its backward kernel once. With more than one
+process, the step sums the gradients over processes before the optimizer
+(inside the backward's range), so every process applies the same update,
+and returns the loss terms of the global batch.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..constants import FOCAL_LENGTH, IMG_RES, J24_TO_J14
 from ..losses.losses import LossConfig, poco_loss
 from ..ops.camera import perspective_projection
 from ..ops.rotation import axis_angle_to_rotmat
+from ..parallel import distributed
 from ..smpl.lbs import SmplParams
 from ..smpl.model import smpl_49
 
@@ -102,9 +106,12 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
         with record_function(TRAIN_STAGES[2]):
             optimizer.zero_grad()
             loss.backward()
+            # each process's loss is its share of the global one: the sum
+            # of the gradients is the one-process gradient
+            distributed.all_reduce_gradients(optimizer.params)
         with record_function(TRAIN_STAGES[3]):
             grad_norm = optimizer.step()
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics = global_loss_terms({k: v.detach() for k, v in loss_dict.items()})
         metrics["grad_norm"] = grad_norm
         if out.get("var_pose") is not None:
             metrics["_var_pose"] = out["var_pose"].detach()
@@ -116,6 +123,15 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
         return metrics
 
     return step
+
+
+def global_loss_terms(terms: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The loss terms of the global batch, the same on every process: the
+    sum of the processes' shares, in one collective."""
+    if distributed.process_count() == 1:
+        return terms
+    total = distributed.all_reduce_sum_(torch.stack(list(terms.values())))
+    return dict(zip(terms, total.unbind()))
 
 
 def make_eval_step(model, j_regressor_h36m: torch.Tensor | None = None):

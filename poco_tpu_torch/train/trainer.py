@@ -1,4 +1,4 @@
-"""Training orchestration for one process (port of `poco_tpu.train.trainer`).
+"""Training orchestration (port of `poco_tpu.train.trainer`).
 
 Reference contract: pocolib/core/trainer.py:28-708. The trainer builds the
 model, loss and optimizer from the hparams tree and runs epochs:
@@ -25,6 +25,15 @@ with SMPL and the losses in fp32. TRAINING.SAVE_IMAGES waits for `viz/`
 and is refused. DATASET.USE_SYNTHETIC_OCCLUSION is refused too: the JAX
 trainer passes its datasets no occluders, so the flag does nothing there;
 `PocoDataset(occluders=...)` takes them.
+
+Over several processes (`parallel.distributed`), each loads its rows of
+every global batch and the step reduces over the global batch, so the run
+is the one-process run; the GT-pose-conditioning mask is chosen on the
+global batch's row names; validation shards `run_eval`; the train-time
+`var_pose` rows are gathered for the statistics; and only rank 0 writes
+(logs, CSV, tensorboard, checkpoints, result and statistics dumps).
+Every process builds the same initial weights from the seed and loads
+the same warm-start or resume file.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from ..config import (
 from ..device import resolve_device
 from ..models.poco import POCO
 from ..ops.preprocess import normalize_image
+from ..parallel import distributed as dist
 from ..smpl.lbs import SmplParams
 from ..utils import checkpoint as ckpt
 from .state import ModuleAdam, count_params
@@ -69,7 +79,7 @@ def select_gt_pose_cond(dataset_names: list[str], cond_ds: str, ratio: float) ->
 
 
 class Trainer:
-    """End-to-end training on one device.
+    """End-to-end training on one device a process.
 
     Args:
         hparams: config tree (`poco_tpu_torch.config`).
@@ -107,6 +117,8 @@ class Trainer:
                 "poco_tpu_torch.data.occlusion (load_pascal_occluders, synthetic_occluders)"
             )
         self.device = resolve_device(device)
+        self.world = dist.process_count()
+        self.is_main = dist.is_main_process()
         self.hparams = hparams
         self.smpl = smpl.to(self.device)
         self.smpl_male = (smpl_male or smpl).to(self.device)
@@ -138,7 +150,7 @@ class Trainer:
         # JSONL always; tensorboard and CSV when PREF_LOGGER names them
         # (e.g. "tensorboard,csv"); no tensorboard package -> no TB log
         self._metrics_file = None
-        pref = str(hparams.get("PREF_LOGGER", ""))
+        pref = str(hparams.get("PREF_LOGGER", "")) if self.is_main else ""
         self._tb = None
         if "tensorboard" in pref:
             try:
@@ -233,6 +245,8 @@ class Trainer:
         self._log({"event": "freeze", "epoch": epoch, "frozen": list(frozen)})
 
     def _log(self, record: dict) -> None:
+        if not self.is_main:
+            return
         record["time"] = time.time()
         if self._metrics_file is None:
             self._metrics_file = open(os.path.join(self.logdir, "metrics.jsonl"), "a")
@@ -275,6 +289,27 @@ class Trainer:
                 f.close()
         self._metrics_file = self._csv = self._tb = None
 
+    def _cond_mask(self, host_batch: dict) -> np.ndarray:
+        """The GT-pose-conditioning mask of this process's rows. The
+        selection is a property of the global batch (the first fraction of
+        the conditioned dataset's rows), so over several processes it is
+        made from the loader's `_global_row_names` and sliced to this
+        process's rows; a selection per shard would condition other rows."""
+        p = self.hparams.POCO
+        if self.world == 1:
+            return select_gt_pose_cond(
+                host_batch.get("dataset_name", []), p.GT_POSE_COND_DS, p.GT_POSE_COND_RATIO
+            )
+        names = host_batch.get("_global_row_names")
+        if names is None:
+            raise RuntimeError(
+                "GT_POSE_COND with multi-process training needs the loader's global row "
+                "names ('_global_row_names'); use a dataset whose get_batch supports "
+                "keep= (PocoDataset / RatioMixedDataset) or disable POCO.GT_POSE_COND"
+            )
+        lo, hi = dist.local_shard_bounds(len(names))
+        return select_gt_pose_cond(names, p.GT_POSE_COND_DS, p.GT_POSE_COND_RATIO)[lo:hi]
+
     def _device_batch(self, host_batch: dict) -> dict:
         """The host batch's arrays on the device, the crops normalized
         there, and the GT-pose-conditioning mask (POCO.GT_POSE_COND)."""
@@ -284,9 +319,7 @@ class Trainer:
             for k, v in host_batch.items() if not isinstance(v, list)
         }
         if self.hparams.METHOD == "poco" and p.GT_POSE_COND:
-            mask = select_gt_pose_cond(
-                host_batch.get("dataset_name", []), p.GT_POSE_COND_DS, p.GT_POSE_COND_RATIO
-            )
+            mask = self._cond_mask(host_batch)
             batch["gt_pose_cond_mask"] = torch.from_numpy(mask).to(self.device)
         batch["img"] = normalize_image(batch["img"].float())
         return batch
@@ -301,6 +334,8 @@ class Trainer:
             batch_size=self.hparams.DATASET.BATCH_SIZE,
             shuffle=self.hparams.DATASET.SHUFFLE_TRAIN,
             seed=epoch,
+            num_shards=self.world,
+            shard_index=dist.process_index(),
         )
         n_crops = 0
         start = time.perf_counter()
@@ -309,16 +344,19 @@ class Trainer:
             metrics = self.train_step(self._device_batch(host_batch), self.smpl)
             self.step += 1
             self._global_step += 1
-            n_crops += host_batch["img"].shape[0]
+            n_crops += host_batch["img"].shape[0] * self.world
             if step_i % self.hparams.TRAINING.LOG_SAVE_INTERVAL == 0:
                 var_pose = metrics.pop("_var_pose", None)
                 metrics.pop("_viz", None)
                 last_metrics = {k: float(v) for k, v in metrics.items()}
                 self._log({"epoch": epoch, "step": step_i, **last_metrics})
                 # per-joint uncertainty statistics (reference
-                # poco_utils.accumulate_uncert, trainer.py:286-289)
+                # poco_utils.accumulate_uncert, trainer.py:286-289), over
+                # the global batch's rows: the gather is collective
                 if var_pose is not None:
-                    self.uncert_stats.update(var_pose.float().cpu().numpy())
+                    rows = dist.allgather(var_pose.float().cpu().numpy())
+                    if self.is_main:
+                        self.uncert_stats.update(rows)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         last_metrics["crops_per_sec"] = n_crops / max(time.perf_counter() - start, 1e-9)
@@ -342,8 +380,9 @@ class Trainer:
         summary = result.summary()
         summary["epoch"] = epoch
         self.val_history.append(summary)
-        with open(os.path.join(self.logdir, "val_accuracy.json"), "w") as f:
-            json.dump(self.val_history, f, indent=1)
+        if self.is_main:
+            with open(os.path.join(self.logdir, "val_accuracy.json"), "w") as f:
+                json.dump(self.val_history, f, indent=1)
         self._log({"event": "val", **summary})
 
         # best model (reference trainer.py:407-442): a lower composite
@@ -354,7 +393,7 @@ class Trainer:
             self.best_metric = min(metric, self.best_metric)
             self.best_corr = max(corr, self.best_corr)
             self.save_checkpoint("best_model")
-            if self.hparams.TESTING.SAVE_RESULTS:
+            if self.hparams.TESTING.SAVE_RESULTS and self.is_main:
                 self._dump_results(result, epoch)
         # the checkpoint behind --inf_model best_mpjpe_var (reference
         # train_utils.py:132-133)
@@ -376,6 +415,8 @@ class Trainer:
         self._topk.sort(key=lambda x: x[0])
         while len(self._topk) > k:
             _, worst = self._topk.pop()
+            if not self.is_main:
+                continue
             path = os.path.join(self.logdir, worst)
             for file in (ckpt.checkpoint_file(path), path + ".trainer.json"):
                 if os.path.exists(file):
@@ -417,7 +458,9 @@ class Trainer:
 
     def save_checkpoint(self, name: str = "checkpoint") -> None:
         """`<logdir>/<name>.pt` (model, optimizer, step, LR scale) and the
-        `<name>.trainer.json` sidecar beside it."""
+        `<name>.trainer.json` sidecar beside it; rank 0 writes them."""
+        if not self.is_main:
+            return
         path = os.path.abspath(os.path.join(self.logdir, name))
         ckpt.save_checkpoint(path, self.model, self.optimizer, self.step,
                              self.optimizer.lr_scale)
@@ -477,4 +520,6 @@ class Trainer:
             if (epoch + 1) % check_every == 0:
                 summary = self.validate(epoch)
             self.save_checkpoint("last")
+        # the other processes wait for rank 0's files
+        dist.barrier()
         return summary

@@ -328,7 +328,7 @@ def test_op_gradients_equal_the_plain_versions():
 # --------------------------------------------------------------------------
 
 def test_data_parallel_export_is_refused(tiny, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A, item 2.4"):
+    with pytest.raises(NotImplementedError, match="queue A, item 3"):
         export_poco(tiny["model"], tiny["smpl"], str(tmp_path / "dp"), batch_sizes=(8,),
                     data_parallel=8, device="cpu")
 

@@ -28,6 +28,8 @@ kernel twice and the backward kernel once. The image loader on the
 card's host (`runtime/loader.py`; nvJPEG where the host has no libjpeg)
 decodes the smoke JPEGs within 2 grey levels of cv2's 16x16 thumbnails,
 applies EXIF orientation in cv2's layout, and raises on bad files.
+`cli.train --dist` and `cli.eval --dist` form an NCCL world of one on the
+card and give the runs without --dist (chip_smoke.py phase 4i (a)).
 """
 
 from pathlib import Path
@@ -632,3 +634,54 @@ def test_exported_program_matches_eager_on_the_card(exported_cliff):
         else:
             np.testing.assert_allclose(got[key], want[key], atol=SERVED_HEAD_TOL,
                                        rtol=SERVED_HEAD_TOL, err_msg=key)
+
+
+# --------------------------------------------------------------------------
+# multi-process: --dist in an NCCL world of one (chip_smoke.py phase 4i (a))
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def torchrun_world_of_one(monkeypatch):
+    """torchrun's environment for one process on a free localhost port."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for key, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_cli_dist_forms_an_nccl_world_of_one(cuda, torchrun_world_of_one, monkeypatch, tmp_path,
+                                            capsys, cli):
+    """`cli.train --dist` / `cli.eval --dist` of tiny_smoke on the card
+    form an NCCL world (rank 0 of 1), leave no process group behind, and
+    give the run without --dist: per-step losses, or the report's mpjpe,
+    pa_mpjpe and v2v, within rtol 2e-4."""
+    import json
+
+    from poco_tpu_torch.cli import eval as eval_cli
+    from poco_tpu_torch.cli import train as train_cli
+
+    monkeypatch.chdir(Path(__file__).resolve().parents[1])
+    results = {}
+    for label, extra in (("plain", []), ("dist", ["--dist"])):
+        if cli == "train":
+            logdir = tmp_path / label
+            train_cli.main(["--cfg", "configs/tiny_smoke.yaml", "--logdir", str(logdir),
+                            "--max_epochs", "1", *extra])
+            with open(logdir / "metrics.jsonl") as f:
+                rows = [json.loads(line) for line in f]
+            results[label] = [r["loss/total_loss"] for r in rows
+                              if "step" in r and "loss/total_loss" in r]
+        else:
+            report = eval_cli.main(["--cfg", "configs/tiny_smoke.yaml", "--dataset", "smoke",
+                                    "--batch_size", "8", *extra])
+            results[label] = [report["summary"][k] for k in ("mpjpe", "pa_mpjpe", "v2v")]
+        out = capsys.readouterr().out
+        assert ("world: rank 0 of 1 (backend nccl)" in out) == (label == "dist")
+        assert not torch.distributed.is_initialized()
+    assert len(results["plain"]) > 0
+    np.testing.assert_allclose(results["dist"], results["plain"], rtol=2e-4)

@@ -418,10 +418,28 @@ def test_cli_resumes_a_run_in_its_logdir(monkeypatch, tmp_path):
         assert [h["epoch"] for h in json.load(f)] == [0, 1]
 
 
-def test_cli_refuses_dist_and_make_launcher():
+def test_cli_refuses_dist_and_make_launcher(monkeypatch, tmp_path, capsys):
+    """--make_launcher is still refused (a later slice). --dist, refused
+    before multi-GPU was ported, now forms a world from torchrun's
+    environment (here one gloo process on the CPU), trains in it, and
+    leaves no process group behind."""
+    import socket
+
     from poco_tpu_torch.cli import train as train_cli
 
-    with pytest.raises(SystemExit, match="later slice"):
-        train_cli.main(["--cfg", "configs/tiny_smoke.yaml", "--dist"])
+    monkeypatch.chdir(REPO)
     with pytest.raises(SystemExit, match="later"):
         train_cli.main(["--cfg", "configs/tiny_smoke.yaml", "--make_launcher", "bash"])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for key, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+    summary = train_cli.main(["--cfg", "configs/tiny_smoke.yaml", "--dist", "--logdir",
+                              str(tmp_path), "--max_epochs", "1", "--device", "cpu"])
+    assert "world: rank 0 of 1 (backend gloo)" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
+    assert summary["epoch"] == 0
+    with open(tmp_path / "metrics.jsonl") as f:
+        assert any("loss/total_loss" in json.loads(line) for line in f)
