@@ -12,7 +12,7 @@ directory, with its own `chip_smoke.py` and `poco_tpu_torch/` (its kernels
 built into its own `_build/`): phases 1 (environment), 2 (build) and 4
 (the POCO-CLIFF main path) always, 4b (POCO-PARE) before `train`, then
 the chosen ones in this order: `train` (4f), `serving` (4h), `dist` (4i,
-in a checkout that has it). Every line a run prints is printed with
+in a checkout that has it), `demo` (4j, likewise). Every line a run prints is printed with
 `[i dir]` before it. Exits 1 if any run failed, after all have run.
 """
 
@@ -23,7 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = ("train", "serving", "dist")
+PHASES = ("train", "serving", "dist", "demo")
 
 RUN = """
 import sys
@@ -39,6 +39,8 @@ if "serving" in phases:
     cs.phase_serving(ctx, card)
 if "dist" in phases:
     cs.phase_dist(ctx, seed, card)
+if "demo" in phases:
+    cs.phase_demo(ctx, seed, card)
 """
 
 

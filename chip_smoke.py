@@ -106,6 +106,30 @@ Phases, each of which raises (exit code 1) on failure:
      step, 5 an evaluation batch) are added to the record; the step time
      of the ranks against one process and each step's gradient
      all-reduce (two ranks on one card show correctness, not scaling);
+  4j. the demo (`python -m poco_tpu_torch.cli.demo`): (a) YOLOv3 at full
+     width (width 32, 80 classes, 416 px) from a seeded Darknet file
+     (BN affine randomized, statistics calibrated on 12 smoke canvases)
+     loaded through `load_darknet_weights`: the raw maps of three canvases,
+     card fp32 against CPU float64 (1e-3 x max(1, max |map|)), the decoded
+     boxes and scores before the threshold against the CPU in fp32 on the
+     card's canvases (1e-2 px + 1e-4 relative, 1e-4), the kept box counts of
+     `detect_batch` at batch 12 over the smoke JPEGs and the full-HD one
+     with a lowered `conf_threshold` (random weights score near 0.25),
+     images/s; (b) `cli.demo --mode folder` with POCO-CLIFF (phase 4's
+     weights through --ckpt, its V=6890 SMPL through --smpl_dir) over the
+     48 smoke JPEGs and the full-HD frame, `--detector refine --sideview
+     --save_obj` then `--detector yolo`: one PNG an image of its width
+     (twice with the side view), `skinning` twice a frame (refine) or
+     once a frame with boxes (yolo), the mesh drawn by a fixed in-frame
+     camera, the full-HD frame's results against a CPU tester on the same
+     image and boxes (vertices 1e-4 m + one fp16 ulp, orig_cam, var and
+     var_global 2e-3 x max(1, |CPU|)); (c) `cli.demo
+     --mode video --smooth` over `tests/data/torch_video/` (16 shifting
+     960x540 crops of the full-HD JPEG): tracking, inference, smoothing,
+     16 rendered frames, the uncertainty log, `skinning` 2 tracking
+     dispatches + one a chunk and one a smoothed track; then `skinning`
+     against its plain version at every batch the demo launched; ms a
+     frame by stage;
   5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
      (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
      kernel and, in turns, with the plain skinning in its place (the
@@ -125,10 +149,10 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4i, in
+The yardsticks never launch on the main paths (checked in 4-4j, in
 every rank). The line before the last is the kernels' JSON record
 (`skinning`, `skinning_simt`, `skinning_backward`,
-`skinning_backward_simt`, launches summed over phases 4-4i and the
+`skinning_backward_simt`, launches summed over phases 4-4j and the
 ranks of 4i); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -157,6 +181,7 @@ import torch
 from torch.utils.data import Subset
 
 from poco_tpu_torch.cli import bench_serving
+from poco_tpu_torch.cli import demo as cli_demo
 from poco_tpu_torch.cli import eval as cli_eval
 from poco_tpu_torch.cli import train as cli_train
 from poco_tpu_torch.config import model_config_from_hparams, update_hparams
@@ -166,8 +191,10 @@ from poco_tpu_torch.constants import (
     PW3D_TEST_SEQUENCES,
 )
 from poco_tpu_torch.data import occlusion
+from poco_tpu_torch.data.inference import images_in_folder
 from poco_tpu_torch.data.dataset import PocoDataset, calculate_bbox_info_np, collate
 from poco_tpu_torch.data.transforms import affine_output_to_source
+from poco_tpu_torch.demo import yolo as demo_yolo_module
 from poco_tpu_torch.demo.tester import detect_forward
 from poco_tpu_torch.eval import metrics as eval_metrics
 from poco_tpu_torch.eval import runner as eval_runner
@@ -2392,6 +2419,276 @@ def phase_dist(ctx: dict, seed: int, card: str) -> dict[str, Counter]:
     return counts
 
 
+# -- the demo (phase 4j) --------------------------------------------------------
+
+DEMO_VIDEO_DIR = REPO / "tests" / "data" / "torch_video"   # 16 frames cut from FULLHD_JPEG
+YOLO_SIZE, YOLO_BATCH = 416, 12       # --yolo_img_size and --tracker_batch_size defaults
+YOLO_MAPS_RTOL = 1e-3     # raw maps, card fp32 vs CPU float64, relative to max(1, max |map|)
+# decoded scores, and boxes (px: anchor x exp(t), up to e^10 x 373) card vs CPU fp32
+YOLO_SCORE_TOL, YOLO_BOX_ATOL, YOLO_BOX_RTOL = 1e-4, 1e-2, 1e-4
+YOLO_QUANTILE = 0.999     # the lowered threshold: this quantile of the first batch's scores
+YOLO_TOPK = 8             # rows an image that reach NMS in the folder pass (200 by default)
+OVERLAY_SHARE = 0.01      # least share of a frame a fixed in-frame camera's mesh must change
+
+
+def write_smpl_dir(path: Path, smpl) -> None:
+    """`smpl` as the SMPL_NEUTRAL.npz + J_regressor_extra.npy that
+    `resolve_smpl_params(path)` loads back unchanged (the CLI's --smpl_dir)."""
+    path.mkdir(parents=True, exist_ok=True)
+    arr = {f: getattr(smpl, f).cpu().numpy() for f in
+           ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights", "faces",
+            "j_regressor_extra")}
+    np.savez(path / "SMPL_NEUTRAL.npz", v_template=arr["v_template"],
+             shapedirs=arr["shapedirs"], posedirs=arr["posedirs"],
+             J_regressor=arr["j_regressor"], weights=arr["lbs_weights"], f=arr["faces"])
+    np.save(path / "J_regressor_extra.npy", arr["j_regressor_extra"])
+
+
+def demo_yolo(tmp: Path, imgs: list, fullhd: int, seed: int, card: str) -> tuple[str, float]:
+    """4j (a): YOLOv3 at full width from a seeded Darknet file, held to
+    the CPU; returns the file and the lowered threshold."""
+    print(f"-- 4j (a) YOLOv3: width 32, 80 classes, {YOLO_SIZE} px, batch {YOLO_BATCH}")
+    torch.manual_seed(seed + 70)
+    model = demo_yolo_module.YoloV3(32, 80).cuda().eval()
+    randomize_batchnorm(model, torch.Generator().manual_seed(seed + 71))
+    batch = [im for k, im in enumerate(imgs) if k != fullhd][:YOLO_BATCH - 1] + [imgs[fullhd]]
+    boxed = [demo_yolo_module.letterbox(im, YOLO_SIZE, device="cuda")[0] for im in batch]
+    calibrate_batchnorm(model, torch.stack(boxed).permute(0, 3, 1, 2))
+    weights = tmp / "yolov3.weights"
+    demo_yolo_module.save_darknet_weights(model, str(weights))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"seeded Darknet file: {n_params} parameters, {weights.stat().st_size} bytes "
+          f"(BN affine randomized, statistics calibrated on {YOLO_BATCH} smoke canvases)")
+    det = demo_yolo_module.YoloDetector(str(weights), img_size=YOLO_SIZE, batch_size=YOLO_BATCH)
+    canvases, _ = det.letterbox_batch(batch)
+    x = canvases[[0, 1, -1]].permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        card_maps = det.model(x)
+    cpu64 = demo_yolo_module.load_darknet_weights(
+        str(weights), demo_yolo_module.YoloV3(32, 80)).double().eval()
+    with torch.inference_mode():
+        cpu_maps = cpu64(x.cpu().double())
+    for i, (c, r) in enumerate(zip(card_maps, cpu_maps)):
+        err = float((c.double().cpu() - r).abs().max())
+        bar = YOLO_MAPS_RTOL * max(1.0, float(r.abs().max()))
+        print(f"yolo map {i} {tuple(c.shape)}: card fp32 vs CPU float64 max_abs_err {err:.3e} "
+              f"(tolerance {bar:.3e} = {YOLO_MAPS_RTOL} x max(1, max |map| "
+              f"{float(r.abs().max()):.3f}))")
+        check(err <= bar, f"YOLO map {i} disagrees with the CPU: {err}")
+    boxes, scores = det.forward_decode(canvases)
+    cpu_det = demo_yolo_module.YoloDetector(str(weights), img_size=YOLO_SIZE, device="cpu")
+    rows = [0, 1, YOLO_BATCH - 1]   # two smoke canvases and the full-HD one
+    ref_boxes, ref_scores = cpu_det.forward_decode(canvases[rows].cpu())
+    s_err = float((scores[rows].cpu() - ref_scores).abs().max())
+    b_diff = (boxes[rows].cpu() - ref_boxes).abs()
+    b_excess = float((b_diff / (YOLO_BOX_ATOL + YOLO_BOX_RTOL * ref_boxes.abs())).max())
+    print(f"decoded before the threshold ({boxes.shape[1]} rows a canvas), card vs CPU fp32 on "
+          f"the card's canvases: scores {s_err:.3e} (tolerance {YOLO_SCORE_TOL}), boxes "
+          f"{float(b_diff.max()):.3e} px at most, {b_excess:.3f} of the tolerance "
+          f"({YOLO_BOX_ATOL} px + {YOLO_BOX_RTOL} x |CPU|; largest box side "
+          f"{float(ref_boxes[..., 2:].max()):.1f} px)")
+    check(s_err <= YOLO_SCORE_TOL and b_excess <= 1.0, "YOLO decode disagrees with the CPU")
+    threshold = float(torch.quantile(scores.flatten().float().cpu(), YOLO_QUANTILE))
+    det.conf_threshold = threshold
+    kept = det.detect_batch(imgs)
+    counts = [len(k) for k in kept]
+    print(f"lowered conf_threshold {threshold:.6f} (the {YOLO_QUANTILE} quantile of the first "
+          f"batch's scores; random weights put sigmoid(obj) x sigmoid(cls) near 0.25, under "
+          f"the 0.5 default): kept boxes by image {counts} (total {sum(counts)})")
+    check(all(np.isfinite(k).all() for k in kept) and sum(counts) > 0, "YOLO kept no box")
+
+    def forward():
+        det.forward_decode(canvases)
+
+    ms = [cuda_ms(forward, iters=5, warmup=2) for _ in range(5)]
+    start = time.perf_counter()
+    for _ in range(3):
+        det.detect_batch(batch)
+    e2e = (time.perf_counter() - start) / 3
+    print(f"yolo forward + decode, batch {YOLO_BATCH} at {YOLO_SIZE} px, fp32 (TF32 off): "
+          f"median {statistics.median(ms):.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}), "
+          f"{1e3 * YOLO_BATCH / statistics.median(ms):.1f} images/s; detect_batch of "
+          f"{YOLO_BATCH - 1} smoke JPEGs and the full-HD one (letterbox, NMS) {1e3 * e2e:.3f} ms, "
+          f"{YOLO_BATCH / e2e:.1f} images/s; on {card}")
+    return str(weights), threshold
+
+
+def demo_folder(label: str, argv: list[str], images: list[str], sideview: bool,
+                yolo_threshold: float | None = None):
+    """One `cli.demo --mode folder` pass on the card: its results, tester
+    and launches; one PNG of the input's width (twice with `sideview`) an image."""
+    args = cli_demo.parse_args(argv)
+    cli_demo.refuse_unported(args)
+    tester = cli_demo.build_tester(args)
+    if yolo_threshold is not None:
+        tester.detector.conf_threshold = yolo_threshold
+        # random weights score the noisy full-HD frame high everywhere: at
+        # most YOLO_TOPK rows an image reach NMS, bounding the render time
+        # of the synthetic SMPL's random faces
+        tester.detector.pre_nms_topk = YOLO_TOPK
+    reset_counts()
+    start = time.perf_counter()
+    results = cli_demo.run_folder(args, tester)
+    seconds = time.perf_counter() - start
+    counts = read_counts(label)
+    for path, res in zip(images, results):
+        out = Path(args.output_folder) / (Path(path).stem + ".png")
+        if not res:
+            check(not out.exists(), f"{label}: {out} written for an image without boxes")
+            continue
+        w = image_loader.image_size(path)[1]
+        png_w = int.from_bytes(out.read_bytes()[16:20], "big")   # IHDR width
+        check(png_w == (2 * w if sideview else w), f"{label}: {out} is {png_w} wide, input {w}")
+        check(all(np.isfinite(res[k]).all() for k in ("verts", "orig_cam", "var")),
+              f"{label}: non-finite results for {path}")
+    return results, tester, counts, seconds
+
+
+def fixed_camera(verts: np.ndarray, h: int, w: int) -> np.ndarray:
+    """An [sx, sy, tx, ty] camera that puts the mesh in the frame's middle half."""
+    x, y = verts[:, 0], -verts[:, 1]
+    sy = 0.5 / max(float(np.abs(y - y.mean()).max()), 1e-6)
+    return np.array([sy * h / w, sy, -x.mean(), -y.mean()], np.float32)
+
+
+def demo_frame_vs_cpu(tester, img: np.ndarray, res: dict) -> None:
+    """One folder-mode frame held to a CPU tester with the same weights on
+    the same image and boxes: the vertices (fp16-rounded on both sides)
+    within METERS_TOL + one fp16 ulp, orig_cam, var and var_global within
+    HEAD_TOL x max(1, |CPU|)."""
+    cpu = type(tester)(copy.deepcopy(tester.model).cpu(), tester.smpl.to("cpu"),
+                       kinematic_uncert=tester.kinematic_uncert).infer_frame(img, res["bboxes"])
+    ulp = np.spacing(np.abs(cpu["verts"]).astype(np.float16)).astype(np.float32)
+    v_err = float(np.abs(res["verts"] - cpu["verts"]).max())
+    print(f"demo frame verts, card vs CPU: {v_err:.3e} m (tolerance {METERS_TOL} m + one fp16 "
+          f"ulp, at most {float(ulp.max()):.3e})")
+    check(bool((np.abs(res["verts"] - cpu["verts"]) <= METERS_TOL + ulp).all()),
+          f"demo frame verts: card and CPU disagree by {v_err} m")
+    for key in ("orig_cam", "var", "var_global"):
+        err = float(np.abs(res[key] - cpu[key]).max())
+        bar = HEAD_TOL * max(1.0, float(np.abs(cpu[key]).max()))
+        print(f"demo frame {key}, card vs CPU: {err:.3e} (tolerance {bar:.3e})")
+        check(err <= bar, f"demo frame {key}: card and CPU disagree by {err}")
+
+
+def stage_split(tester, n: int, unit: str) -> str:
+    return ", ".join(f"{k} {1e3 * v / n:.3f} ms" for k, v in sorted(tester.stage_seconds.items())
+                     ) + f" a {unit}"
+
+
+def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], float]:
+    """Phase 4j: the demo on the card (see the module docstring). Returns
+    each run's launches and the skinning kernel's largest error against
+    its plain version at the batches the demo launched it with."""
+    import shutil
+    import tempfile
+
+    print("== 4j. the demo: YOLOv3, cli.demo folder and video modes")
+    phase_start = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    folder = tmp / "images"
+    folder.mkdir()
+    for p in [*SMOKE_DIR.glob("*.jpg"), FULLHD_JPEG]:
+        shutil.copy(p, folder)
+    images = images_in_folder(str(folder))   # the CLI's order
+    fullhd = images.index(str(folder / FULLHD_JPEG.name))
+    imgs = image_loader.read_images_rgb(images)
+    weights, threshold = demo_yolo(tmp, imgs, fullhd, seed, card)
+
+    write_smpl_dir(tmp / "smpl", ctx["smpl"])
+    torch.save(ctx["model"].state_dict(), tmp / "poco_cliff.pt")
+    base = ["--cfg", str(REPO / "configs/poco_cliff.yaml"), "--ckpt", str(tmp / "poco_cliff.pt"),
+            "--smpl_dir", str(tmp / "smpl")]
+    counts, batches = {}, {1}
+
+    print(f"-- 4j (b) cli.demo --mode folder over {len(images)} JPEGs (the smoke set and "
+          f"{FULLHD_JPEG.name}), POCO-CLIFF at full width, SMPL V=6890")
+    refine, tester, counts["demo_folder_refine"], refine_s = demo_folder(
+        "demo folder refine",
+        base + ["--image_folder", str(folder), "--output_folder", str(tmp / "refine"),
+                "--sideview", "--save_obj"], images, sideview=True)
+    check(tester.model.cfg.backbone == "hrnet_w48_cls-cliff"
+          and tester.smpl.v_template.shape[0] == 6890, "the demo did not run POCO-CLIFF at V=6890")
+    # mixed sizes: the refine detector runs one dispatch a frame, then one a frame to infer
+    expected = 2 * len(images)
+    print(f"--detector refine --sideview --save_obj: {len(refine)} images, launches "
+          f"{dict(counts['demo_folder_refine'])} (expected skinning {expected}: a refine "
+          f"dispatch and an inference a frame); {len(list((tmp / 'refine').glob('*.obj')))} OBJs; "
+          f"{len(images) / refine_s:.2f} frames/s; {stage_split(tester, len(images), 'frame')} "
+          f"on {card}")
+    check(counts["demo_folder_refine"]["skinning"] == expected, "folder refine launches")
+    i = fullhd
+    res = refine[i]
+    h, w = imgs[i].shape[:2]
+    cam = fixed_camera(res["verts"][0], h, w)
+    drawn = tester.renderer.render(imgs[i], res["verts"][0], cam,
+                                   vertex_colors=tester._vertex_colors(res["var"][0]))
+    share = float((np.abs(drawn.astype(int) - imgs[i]).max(axis=2) > 0).mean())
+    print(f"fixed in-frame camera {cam.round(4).tolist()} on {FULLHD_JPEG.name}: the overlay "
+          f"changes {share:.4f} of the frame (at least {OVERLAY_SHARE}); the predicted camera "
+          f"{res['orig_cam'][0].round(4).tolist()}")
+    check(share >= OVERLAY_SHARE, "the fixed-camera overlay drew nothing")
+    demo_frame_vs_cpu(tester, imgs[i], res)
+
+    yolo_res, tester, counts["demo_folder_yolo"], yolo_s = demo_folder(
+        "demo folder yolo",
+        base + ["--image_folder", str(folder), "--output_folder", str(tmp / "yolo"),
+                "--detector", "yolo", "--yolo_weights", weights], images, sideview=False,
+        yolo_threshold=threshold)
+    boxes = [len(r.get("bboxes", [])) for r in yolo_res]
+    batches |= {b for b in boxes if b}
+    expected = sum(1 for b in boxes if b)
+    print(f"--detector yolo (threshold {threshold:.6f}, pre_nms_topk {YOLO_TOPK}): boxes by "
+          f"image {boxes}, launches "
+          f"{dict(counts['demo_folder_yolo'])} (expected skinning {expected}: one a frame "
+          f"with boxes); {len(images) / yolo_s:.2f} frames/s; "
+          f"{stage_split(tester, len(images), 'frame')} on {card}")
+    check(counts["demo_folder_yolo"]["skinning"] == expected, "folder yolo launches")
+
+    frames = sorted(DEMO_VIDEO_DIR.glob("*.jpg"))
+    print(f"-- 4j (c) cli.demo --mode video --smooth over {len(frames)} frames of "
+          f"{DEMO_VIDEO_DIR.relative_to(REPO)} (960x540 crops of {FULLHD_JPEG.name}, shifting); "
+          f"ffmpeg on PATH: {shutil.which('ffmpeg') is not None}")
+    args = cli_demo.parse_args(base + ["--mode", "video", "--image_folder", str(DEMO_VIDEO_DIR),
+                                       "--output_folder", str(tmp / "video"), "--smooth"])
+    cli_demo.refuse_unported(args)
+    tester = cli_demo.build_tester(args)
+    reset_counts()
+    start = time.perf_counter()
+    video = cli_demo.run_video(args, tester)
+    video_s = time.perf_counter() - start
+    counts["demo_video"] = read_counts("demo video")
+    lengths = [len(r["frame_ids"]) for r in video.values()]
+    tracking = math.ceil(len(frames) / 8)   # refine: 8 frames a dispatch
+    expected = tracking + sum(math.ceil(n / args.batch_size) for n in lengths) + len(lengths)
+    batches |= {8, len(frames) % 8 or 8} | set(lengths) | {
+        min(args.batch_size, n - s) for n in lengths for s in range(0, n, args.batch_size)}
+    rendered = sorted((tmp / "video" / "rendered").glob("*.png"))
+    log = (tmp / "video" / "uncertainty.log").read_text().splitlines()
+    print(f"video: tracks of {lengths} frames; launches {dict(counts['demo_video'])} (expected "
+          f"skinning {expected}: {tracking} tracking dispatches, a chunk of {args.batch_size} "
+          f"a track, a smoothed track); {len(rendered)} frames rendered; {len(log)} log lines; "
+          f"{len(frames) / video_s:.2f} frames/s; {stage_split(tester, len(frames), 'frame')} "
+          f"on {card}")
+    check(counts["demo_video"]["skinning"] == expected, "video launches")
+    check(len(rendered) == len(frames) and len(log) == sum(lengths), "video outputs")
+    check(all(np.isfinite(r["verts"]).all() for r in video.values()), "video verts not finite")
+
+    # the kernel at the batches the demo launched it with, beside phase 3's
+    worst = 0.0
+    for batch in sorted(batches - {b for b, v in SKIN_SHAPES if v == 6890}):
+        args_ = skinning_inputs(batch, 6890, seed=batch)
+        err = float((skinning(*args_) - skinning_reference(*args_)).abs().max())
+        print(f"skinning v2 B={batch} V=6890 (a demo batch): max_abs_err {err:.3e} "
+              f"(tolerance {SKIN_TOL})")
+        check(err <= SKIN_TOL, f"skinning disagrees with its plain version at B={batch}")
+        worst = max(worst, err)
+    tmp_dir.cleanup()
+    print(f"phase 4j: {time.perf_counter() - phase_start:.3f} s")
+    return counts, worst
+
+
 def timed_requests(run, reps: int) -> list[float]:
     times = []
     for _ in range(reps):
@@ -2616,6 +2913,9 @@ def main() -> int:
     paths.update(images["counts"])
     paths["serving"] = phase_serving(ctx, card)
     paths.update(phase_dist(ctx, args.seed, card))
+    demo_counts, demo_err = phase_demo(ctx, args.seed, card)
+    paths.update(demo_counts)
+    errs["v2"] = max(errs["v2"], demo_err)
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)

@@ -3,7 +3,8 @@
 `state_dict_from_jax` is the inverse of the torch -> flax converter
 (`poco_tpu/utils/checkpoint_convert.py:36-81`): it takes the JAX model's
 variables (`params`, `batch_stats`, `buffers`, as numpy arrays) and
-returns the port's state_dict, with reference torch names. It also holds
+returns the port's state_dict, with reference torch names;
+`yolo_state_dict_from_jax` does the same for the demo's YOLOv3. It also holds
 the helpers that give a randomly initialized model well-scaled batch-norm
 statistics, for runs without a checkpoint.
 """
@@ -219,3 +220,28 @@ def calibrate_batchnorm(module: nn.Module, *inputs) -> None:
     module.eval()
     for m, momentum in zip(bns, momenta):
         m.momentum = momentum
+
+
+def yolo_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's flax `YoloV3` variables (`params`, `batch_stats`,
+    as numpy) -> the port's `demo.yolo.YoloV3` state_dict: `conv{i}`
+    kernels HWIO -> OIHW and biases, `bn{i}` scale/bias -> weight/bias and
+    mean/var -> running_mean/var. A leaf with no place raises."""
+    state: dict[str, torch.Tensor] = {}
+    leaves = {("params", "kernel"): "weight", ("params", "bias"): "bias",
+              ("params", "scale"): "weight", ("batch_stats", "mean"): "running_mean",
+              ("batch_stats", "var"): "running_var"}
+    unknown = []
+    for col in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(col, {})).items():
+            leaf = leaves.get((col, path[-1]))
+            if len(path) != 2 or leaf is None or not re.fullmatch(r"(conv|bn)\d+", path[0]):
+                unknown.append("/".join((col,) + path))
+                continue
+            state[f"{path[0]}.{leaf}"] = torch.from_numpy(
+                np.ascontiguousarray(_torch_layout(path[-1], value)))
+            if leaf == "running_mean":
+                state[f"{path[0]}.num_batches_tracked"] = torch.tensor(0)
+    if unknown:
+        raise KeyError(f"JAX YOLO leaves with no place in the port: {unknown}")
+    return state

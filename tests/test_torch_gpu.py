@@ -30,6 +30,10 @@ decodes the smoke JPEGs within 2 grey levels of cv2's 16x16 thumbnails,
 applies EXIF orientation in cv2's layout, and raises on bad files.
 `cli.train --dist` and `cli.eval --dist` form an NCCL world of one on the
 card and give the runs without --dist (chip_smoke.py phase 4i (a)).
+The demo: YOLOv3's maps and decoded boxes on the card within 1e-4 of the
+CPU's float64; `PocoTester.run_on_image_folder` of tiny-cliff on the card
+as on the CPU (one `skinning` launch a frame); the mesh rasterizer builds
+under `_build/` and draws.
 """
 
 from pathlib import Path
@@ -685,3 +689,79 @@ def test_cli_dist_forms_an_nccl_world_of_one(cuda, torchrun_world_of_one, monkey
         assert not torch.distributed.is_initialized()
     assert len(results["plain"]) > 0
     np.testing.assert_allclose(results["dist"], results["plain"], rtol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# the demo (chip_smoke.py phase 4j at full width)
+# --------------------------------------------------------------------------
+
+def test_yolo_forward_on_the_card_matches_the_cpu(cuda):
+    """YOLOv3 at width 4, 3 classes, 64 px: the card's fp32 maps and
+    decoded boxes within 1e-4 of the CPU's float64 ones."""
+    from poco_tpu_torch.demo import yolo
+
+    torch.manual_seed(0)
+    model = yolo.YoloV3(width=4, num_classes=3).eval()
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        ref = model.double()(x.double())
+        got = model.float().to(cuda)(x.to(cuda))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().double().numpy(), r.numpy(), atol=1e-4, rtol=0)
+        boxes, scores = yolo.decode_predictions(g, yolo.YOLO_ANCHORS[0], 32, 3)
+        ref_boxes, ref_scores = yolo.decode_predictions(r.float(), yolo.YOLO_ANCHORS[0], 32, 3)
+        np.testing.assert_allclose(scores.cpu().numpy(), ref_scores.numpy(), atol=1e-4)
+        np.testing.assert_allclose(boxes.cpu().numpy(), ref_boxes.numpy(), atol=1e-3, rtol=1e-4)
+
+
+def test_tester_folder_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """`PocoTester.run_on_image_folder` of tiny-cliff (V=96) over three
+    smoke JPEGs, card vs CPU: the fp16-rounded vertices within 1e-4 m +
+    one fp16 ulp, cameras and uncertainty within 2e-3; one `skinning`
+    launch a frame; a PNG of twice the input's width with the side view."""
+    import shutil
+
+    from poco_tpu_torch.demo.tester import PocoTester
+
+    folder = tmp_path / "images"
+    folder.mkdir()
+    for p in sorted((Path(__file__).resolve().parents[1] / "data" / "dataset_folders"
+                     / "smoke").glob("*.jpg"))[:3]:
+        shutil.copy(p, folder)
+    torch.manual_seed(0)
+    model = port_poco.POCO(port_poco.PocoConfig(backbone="tiny-cliff", num_neurons=(216,),
+                                                context_dim=64)).eval()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        tester = PocoTester(copy_to(model, device), synthetic_smpl_model(num_verts=96,
+                                                                         device=device))
+        skinning.launches = 0
+        runs[device] = tester.run_on_image_folder(str(folder), str(tmp_path / device),
+                                                  sideview=True)
+        if device == "cuda":
+            assert skinning.launches == 3
+    for got, ref in zip(runs["cuda"], runs["cpu"]):
+        ulp = np.spacing(np.abs(ref["verts"]).astype(np.float16)).astype(np.float32)
+        assert (np.abs(got["verts"] - ref["verts"]) <= 1e-4 + ulp).all()
+        for key in ("orig_cam", "var", "var_global", "betas"):
+            np.testing.assert_allclose(got[key], ref[key], atol=2e-3, rtol=2e-3)
+    png = sorted((tmp_path / "cuda").glob("*.png"))[0].read_bytes()
+    assert int.from_bytes(png[16:20], "big") == 512
+
+
+def copy_to(model, device):
+    import copy
+
+    return copy.deepcopy(model).to(device)
+
+
+def test_rasterizer_builds_under_build_and_draws(cuda):
+    from poco_tpu_torch.runtime import raster
+
+    path = raster.build()
+    assert path.parent.name == "_build" and path.parent.parent.name == "poco_tpu_torch"
+    uv = np.array([[2.0, 2.0], [30.0, 4.0], [10.0, 28.0]], np.float32)
+    out = raster.raster_mesh(np.zeros((32, 32, 3), np.float32), uv, np.ones(1, np.float32),
+                             np.array([[0, 1, 2]]), np.full((1, 3), 200.0, np.float32),
+                             np.ones(1, bool))
+    assert (out[..., 0] == 200).sum() > 100 and out[0, 31, 0] == 0
