@@ -12,7 +12,8 @@ directory, with its own `chip_smoke.py` and `poco_tpu_torch/` (its kernels
 built into its own `_build/`): phases 1 (environment), 2 (build) and 4
 (the POCO-CLIFF main path) always, 4b (POCO-PARE) before `train`, then
 the chosen ones in this order: `train` (4f), `serving` (4h), `dist` (4i,
-in a checkout that has it), `demo` (4j, likewise). Every line a run prints is printed with
+in a checkout that has it), `demo` (4j, likewise), `losses` (4k-4m, on
+4f's synthetic samples, in a checkout that has them). Every line a run prints is printed with
 `[i dir]` before it. Exits 1 if any run failed, after all have run.
 """
 
@@ -23,7 +24,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = ("train", "serving", "dist", "demo")
+PHASES = ("train", "serving", "dist", "demo", "losses")
 
 RUN = """
 import sys
@@ -41,6 +42,12 @@ if "dist" in phases:
     cs.phase_dist(ctx, seed, card)
 if "demo" in phases:
     cs.phase_demo(ctx, seed, card)
+if "losses" in phases:
+    data = cs.SyntheticTrainSet(10 * 64, seed + 31, ctx["smpl"].to("cpu"))
+    train = {"data": data, "host": cs.collate([data[i] for i in range(64)])}
+    cs.phase_render_losses(ctx, cs.phase_pare(ctx, seed), train, card)
+    cs.phase_train_images(ctx, train, card)
+    cs.phase_launchers(card)
 """
 
 

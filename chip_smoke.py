@@ -127,9 +127,39 @@ Phases, each of which raises (exit code 1) on failure:
      --mode video --smooth` over `tests/data/torch_video/` (16 shifting
      960x540 crops of the full-HD JPEG): tracking, inference, smoothing,
      16 rendered frames, the uncertainty log, `skinning` 2 tracking
-     dispatches + one a chunk and one a smoothed track; then `skinning`
-     against its plain version at every batch the demo launched; ms a
-     frame by stage;
+     dispatches + one a chunk and one a smoothed track; (d) `cli.demo
+     --mode webcam --smooth` over the first 8 of those frames as a
+     replayed camera, pipelined and `--stream_sequential` with one tester:
+     fps and the end-to-end and model latencies (p50, p90), `skinning`
+     twice a frame, the two runs' frames bit-identical; the folder pass
+     writes each input's own name, the JPEGs as JPEG (nvJPEG's encoder on
+     the card's host): the full-HD frame's overlay, decoded by the port's
+     loader, within 30 dB PSNR of the frame rendered again, and the
+     encoder on the decoded full-HD input within 0.5 dB of cv2.imwrite's
+     default quality (FULLHD_CV2_PSNR); then `skinning` against its plain
+     version at every batch the demo launched; ms a frame by stage;
+  4k. the render and part-segmentation losses at full width (the soft
+     rasterizer, `ops/soft_raster.py`): POCO-PARE (configs/poco_pare.yaml
+     as it is, batch 64, phase 4b's weights, phase 4f's samples) with
+     TRAINING.USE_SMPL_RENDER_LOSS and USE_SMPL_SEGM_LOSS set on in code:
+     card against CPU at batch 2 as phase 4f holds it (the float64
+     forward's ReLU branches; each leaf within 1e-3 relative), every loss
+     term finite and both new terms present, 1 + 13 steps on one batch
+     (ms a step over 10 after 3 of warm-up), 2 + 1 launches a step, the
+     peak `max_memory_allocated`, a profile of the step by `TRAIN_STAGES`
+     (uncounted: after the launch check); then POCO-CLIFF with the render
+     loss only (no `pred_segm_mask`, so no segmentation term, as in JAX);
+  4l. TRAINING.SAVE_IMAGES and the profile hook: a `Trainer.fit` of
+     POCO-CLIFF (configs/poco_cliff.yaml, batch 64, 5 steps) with
+     POCO_TPU_PROFILE_DIR set: a (896, 672, 3) grid a step under
+     `<logdir>/images/`, its render time, and the Chrome trace of the
+     first 5 steps with every `TRAIN_STAGES` range and the skinning
+     kernels' launches in it;
+  4m. launchers: `cli.train --make_launcher bash` on
+     tests/data/tiny_smoke_grid.yaml (configs/tiny_smoke.yaml with two
+     learning rates), the script run on the card: both runs' logdirs and
+     checkpoints (removed after); `cli.eval --make_launcher bash` parsed
+     by `bash -n`;
   5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
      (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
      kernel and, in turns, with the plain skinning in its place (the
@@ -149,10 +179,10 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4j, in
+The yardsticks never launch on the main paths (checked in 4-4l, in
 every rank). The line before the last is the kernels' JSON record
 (`skinning`, `skinning_simt`, `skinning_backward`,
-`skinning_backward_simt`, launches summed over phases 4-4j and the
+`skinning_backward_simt`, launches summed over phases 4-4l and the
 ranks of 4i); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -1237,13 +1267,14 @@ def loss_and_grads(model, batch, smpl, loss_cfg, relu) -> tuple[float, dict]:
     forward inside the context `relu` (a `ReluMasks` record or replay):
     the loss and each parameter's gradient, in float64 on the CPU."""
     from poco_tpu_torch.losses.losses import poco_loss
-    from poco_tpu_torch.train.step import prepare_gt
+    from poco_tpu_torch.train.step import add_pred_render, prepare_gt, render_targets
 
     gt = prepare_gt(batch, smpl)
+    gt.update(render_targets(batch, gt, smpl, loss_cfg))
     model.train()
     with relu:
         out = model(dict(batch, gt_pose_rotmat=gt["gt_pose_rotmat"]), smpl)
-    loss, _ = poco_loss(out, gt, loss_cfg)
+    loss, _ = poco_loss(add_pred_render(out, gt), gt, loss_cfg)
     model.zero_grad(set_to_none=True)
     loss.backward()
     return loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()}
@@ -1429,7 +1460,8 @@ def phase_train(ctx: dict, pare: dict, seed: int, card: str) -> dict:
     pare_step, pare_launches = train_pare(ctx, pare, data, host, card)
     return {"counts": launches, "pare_counts": pare_launches,
             "run_step": lambda: step(batch, smpl), "run_pare_step": pare_step,
-            "step_crops_per_s": batch_size / statistics.median(ts), "tmp": tmp}
+            "step_crops_per_s": batch_size / statistics.median(ts), "tmp": tmp,
+            "data": data, "host": host}
 
 
 def time_train_step(label: str, step, batch: dict, smpl, card: str) -> list[float]:
@@ -1492,6 +1524,232 @@ def train_pare(ctx: dict, pare: dict, data, host: dict, card: str):
           == tuple(13 * n for n in TRAIN_LAUNCHES),
           "train POCO-PARE: each step must launch skinning 2 and skinning_backward 1 times")
     return (lambda: step(batch, ctx["smpl"])), launches
+
+
+# -- the render and part-segmentation losses, training images, launchers ------
+
+RENDER_TERMS = ("loss/loss_smpl_render", "loss/loss_smpl_segm")
+IMAGE_STEPS = 5           # phase 4l's fit: the profile hook traces steps 0-4
+GRID_SHAPE = (4 * 224, 3 * 224, 3)   # 4 rows of [crop | GT | prediction]
+
+
+def read_png(path: Path) -> np.ndarray:
+    """An 8-bit RGB PNG as `runtime/image_write.encode_png` writes it
+    (filter 0 on every row): the card's host has no libpng."""
+    import zlib
+
+    data = path.read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
+    check(data[24:26] == b"\x08\x02", f"{path}: not 8-bit RGB")
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += n + 12
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(bool((rows[:, 0] == 0).all()), f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def loss_trainer(ctx: dict, config: str, weights, render: bool, segm: bool, data):
+    """A full-width Trainer of `config` as it is, the render and part-
+    segmentation losses set in code, with `weights` loaded."""
+    import tempfile
+
+    from poco_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_losses_") as logdir:
+        hparams = train_hparams(logdir, config)
+        hparams.TRAINING.USE_SMPL_RENDER_LOSS = render
+        hparams.TRAINING.USE_SMPL_SEGM_LOSS = segm
+        trainer = Trainer(hparams, ctx["smpl"], train_dataset_fn=lambda epoch: data,
+                          device="cuda")
+        trainer.close()
+    trainer.model.load_state_dict(weights.state_dict())
+    return trainer
+
+
+def phase_render_losses(ctx: dict, pare: dict, train: dict, card: str) -> dict[str, Counter]:
+    """Phase 4k: the render and part-segmentation losses at full width
+    (see the module docstring). Returns each model's launches."""
+    from poco_tpu_torch.train.step import make_train_step
+
+    print("== 4k. the render and part-segmentation losses at full width (soft rasterizer)")
+    phase_start = time.perf_counter()
+    data, host = train["data"], train["host"]
+    counts = {}
+    for label, config, weights, segm in (
+            ("POCO-PARE, render + segmentation", "configs/poco_pare.yaml", pare["model"], True),
+            ("POCO-CLIFF, render", "configs/poco_cliff.yaml", ctx["model"], False)):
+        trainer = loss_trainer(ctx, config, weights, True, segm, data)
+        cfg = trainer.loss_cfg
+        check(cfg.use_smpl_render_loss and cfg.use_smpl_segm_loss == segm,
+              f"{label}: the loss flags did not reach the loss")
+        check(trainer.hparams.DATASET.BATCH_SIZE == len(host["img"]),
+              f"{config} trains at batch {trainer.hparams.DATASET.BATCH_SIZE}")
+        print(f"{label}: {config} as it is (batch {len(host['img'])}), "
+              f"TRAINING.USE_SMPL_RENDER_LOSS on, USE_SMPL_SEGM_LOSS {'on' if segm else 'off'}; "
+              f"render weight {cfg.smpl_render_loss_weight}, segmentation weight "
+              f"{cfg.smpl_segm_loss_weight}")
+        if segm:
+            train_card_vs_cpu(trainer, data)
+        batch = trainer._device_batch(host)
+        step = make_train_step(trainer.model, trainer.optimizer, cfg)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        first = step(batch, ctx["smpl"])
+        terms = {k: float(v) for k, v in first.items() if k.startswith("loss/")}
+        print(f"{label} first step: {json.dumps(terms)}")
+        want = set(RENDER_TERMS) if segm else {RENDER_TERMS[0]}
+        check(want <= set(terms) and (segm or RENDER_TERMS[1] not in terms),
+              f"{label}: loss terms {sorted(terms)}")
+        check(all(math.isfinite(v) for v in terms.values()), f"{label}: {terms}")
+        time_train_step(label, step, batch, ctx["smpl"], card)
+        counts[label] = read_counts(label)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label}: launches {dict(counts[label])} over 14 steps; peak memory "
+              f"{peak / 2**30:.3f} GiB (max_memory_allocated; {resident / 2**30:.3f} GiB "
+              f"resident before the steps) on {card}")
+        check((counts[label]["skinning"], counts[label]["skinning_backward"])
+              == tuple(14 * n for n in TRAIN_LAUNCHES),
+              f"{label}: each step must launch skinning 2 and skinning_backward 1 times")
+        profile_request(f"train step, {label}, batch 64, fp32", lambda: step(batch, ctx["smpl"]),
+                        card, stages=TRAIN_STAGES)
+        trainer.close()
+        del trainer, step, batch, first
+        torch.cuda.empty_cache()
+    print(f"phase 4k: {time.perf_counter() - phase_start:.3f} s")
+    return {"render_" + k.split(",")[0].lower().replace("-", "_"): v for k, v in counts.items()}
+
+
+def phase_train_images(ctx: dict, train: dict, card: str) -> Counter:
+    """Phase 4l: TRAINING.SAVE_IMAGES and the profile hook in a short
+    `Trainer.fit` of POCO-CLIFF at batch 64: a grid a step of the right
+    shape, its render time, and the Chrome trace of the first steps with
+    every TRAIN_STAGES range and the skinning kernels in it."""
+    import tempfile
+
+    from poco_tpu_torch.train.trainer import Trainer
+
+    print(f"== 4l. TRAINING.SAVE_IMAGES and POCO_TPU_PROFILE_DIR: POCO-CLIFF Trainer.fit, "
+          f"{IMAGE_STEPS} steps at batch 64")
+    phase_start = time.perf_counter()
+    data = Subset(train["data"], range(IMAGE_STEPS * 64))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_images_") as logdir:
+        hparams = train_hparams(logdir)
+        hparams.TRAINING.SAVE_IMAGES = True
+        profile_dir = Path(logdir) / "profile"
+        os.environ["POCO_TPU_PROFILE_DIR"] = str(profile_dir)
+        try:
+            trainer = Trainer(hparams, ctx["smpl"], train_dataset_fn=lambda epoch: data,
+                              device="cuda")
+            trainer.model.load_state_dict(ctx["model"].state_dict())
+            render_s = []
+            save = trainer._save_images
+
+            def timed_save(*args, **kwargs):
+                start = time.perf_counter()
+                save(*args, **kwargs)
+                render_s.append(time.perf_counter() - start)
+
+            trainer._save_images = timed_save
+            reset_counts()
+            start = time.perf_counter()
+            trainer.fit()
+            fit_s = time.perf_counter() - start
+            counts = read_counts("train images")
+            trainer.close()
+        finally:
+            del os.environ["POCO_TPU_PROFILE_DIR"]
+        grids = sorted((Path(logdir) / "images").glob("*.png"))
+        check([g.name for g in grids] == sorted(f"train_e0_s{i}.png" for i in range(IMAGE_STEPS)),
+              f"SAVE_IMAGES wrote {[g.name for g in grids]}")
+        for g in grids:
+            check(read_png(g).shape == GRID_SHAPE, f"{g.name}: not {GRID_SHAPE}")
+        traces = sorted(profile_dir.glob("*.json"))
+        check([t.name for t in traces] == ["train_e0_rank0.json"], f"traces {traces}")
+        size = traces[0].stat().st_size
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = Counter(e.get("name", "") for e in events)
+    missing = [s for s in TRAIN_STAGES if names[s] == 0]
+    check(not missing, f"the trace lacks the ranges {missing}")
+    kernels = {k: sum(n for name, n in names.items() if any(m in name for m in marks))
+               for k, marks in SKIN_KERNELS.items()}
+    print(f"fit: {IMAGE_STEPS} steps in {fit_s:.3f} s (the profiler on for all of them), "
+          f"launches {dict(counts)}; {len(grids)} grids of {GRID_SHAPE}, render and write "
+          f"{1e3 * statistics.median(render_s):.1f} ms a grid (min {1e3 * min(render_s):.1f}, "
+          f"max {1e3 * max(render_s):.1f}; host clock, the synthetic SMPL's random faces); "
+          f"trace {size / 2**20:.1f} MiB, {len(events)} events, ranges "
+          f"{ {s: names[s] for s in TRAIN_STAGES} }, skinning kernels {kernels} on {card}")
+    check((counts["skinning"], counts["skinning_backward"])
+          == tuple(IMAGE_STEPS * n for n in TRAIN_LAUNCHES), "train images: launches a step")
+    check(kernels["skinning"] >= 2 * IMAGE_STEPS and kernels["skinning_backward"] >= IMAGE_STEPS,
+          f"the trace does not hold the skinning kernels' launches: {kernels}")
+    print(f"phase 4l: {time.perf_counter() - phase_start:.3f} s")
+    return counts
+
+
+def phase_launchers(card: str) -> None:
+    """Phase 4m: `cli.train --make_launcher bash` on a 2-experiment grid of
+    configs/tiny_smoke.yaml (tests/data/tiny_smoke_grid.yaml), the script
+    run on the card (both runs' logdirs and checkpoints checked, then
+    removed), and `cli.eval --make_launcher bash` parsed by `bash -n`."""
+    import shutil
+    import tempfile
+
+    print("== 4m. grid-search launchers: cli.train / cli.eval --make_launcher bash")
+    phase_start = time.perf_counter()
+    grid = REPO / "tests" / "data" / "tiny_smoke_grid.yaml"
+    runs = REPO / "logs" / "experiments" / "poco" / "tiny_smoke_grid"
+    before = set(runs.glob("*")) if runs.exists() else set()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        scripts = {}
+        cwd = os.getcwd()
+        try:
+            # each in a directory of its own: both are named after the config
+            for name, cli in (("train", cli_train), ("eval", cli_eval)):
+                os.makedirs(Path(tmp) / name)
+                os.chdir(Path(tmp) / name)
+                scripts[name] = Path(tmp) / name / cli.main(
+                    ["--cfg", str(grid), "--make_launcher", "bash"])["launcher"]
+        finally:
+            os.chdir(cwd)
+        train_script, eval_script = scripts["train"], scripts["eval"]
+        print(train_script.read_text().strip())
+        parsed = subprocess.run(["bash", "-n", str(eval_script)], capture_output=True, text=True)
+        check(parsed.returncode == 0, f"bash -n {eval_script.name}: {parsed.stderr}")
+        # the launchers call `python`, as the JAX package's do: this interpreter
+        (Path(tmp) / "bin").mkdir()
+        (Path(tmp) / "bin" / "python").write_text(f'#!/bin/sh\nexec {sys.executable} "$@"\n')
+        (Path(tmp) / "bin" / "python").chmod(0o755)
+        env = dict(os.environ, PATH=f"{tmp}/bin:{os.environ.get('PATH', '')}")
+        start = time.perf_counter()
+        proc = subprocess.run(["bash", str(train_script)], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - start
+    check(proc.returncode == 0, f"the train launcher failed:\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-3000:]}")
+    made = sorted(set(runs.glob("*")) - before)
+    try:
+        print(f"train launcher: 2 runs in {seconds:.1f} s on {card}; logdirs "
+              f"{[d.name for d in made]}")
+        check(len(made) == 2 and {d.name.split("_")[3] for d in made} == {"ID00", "ID01"},
+              f"the launcher's runs made the logdirs {made}")
+        for d in made:
+            check((d / "last.pt").exists() and (d / "last.trainer.json").exists(),
+                  f"{d.name}: no last checkpoint")
+            with open(d / "config_to_run.yaml") as f:
+                lr = [line for line in f if line.strip().startswith("LR:")]
+            print(f"  {d.name}: {sorted(p.name for p in d.glob('*.pt'))}, {lr[0].strip()}")
+    finally:
+        for d in made:
+            shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 4m: {time.perf_counter() - phase_start:.3f} s")
 
 
 SMOKE_DIR = REPO / "data" / "dataset_folders" / "smoke"
@@ -2429,6 +2687,12 @@ YOLO_SCORE_TOL, YOLO_BOX_ATOL, YOLO_BOX_RTOL = 1e-4, 1e-2, 1e-4
 YOLO_QUANTILE = 0.999     # the lowered threshold: this quantile of the first batch's scores
 YOLO_TOPK = 8             # rows an image that reach NMS in the folder pass (200 by default)
 OVERLAY_SHARE = 0.01      # least share of a frame a fixed in-frame camera's mesh must change
+STREAM_FRAMES = 8         # frames of the webcam-replay stream, each run
+# cv2.imwrite (OpenCV 5.0.0) at its default quality 95 on tests/data/torch_fullhd.jpg
+# as cv2 decodes it: the re-encoded file's PSNR (tests/test_torch_demo.py checks it)
+FULLHD_CV2_PSNR = 45.0148
+JPEG_PSNR_DB = 0.5        # the card's JPEG encoder against FULLHD_CV2_PSNR
+JPEG_OVERLAY_DB = 30.0    # the demo's JPEG against the frame it encodes
 
 
 def write_smpl_dir(path: Path, smpl) -> None:
@@ -2516,7 +2780,8 @@ def demo_yolo(tmp: Path, imgs: list, fullhd: int, seed: int, card: str) -> tuple
 def demo_folder(label: str, argv: list[str], images: list[str], sideview: bool,
                 yolo_threshold: float | None = None):
     """One `cli.demo --mode folder` pass on the card: its results, tester
-    and launches; one PNG of the input's width (twice with `sideview`) an image."""
+    and launches; one image an input under its name (a JPEG for a JPEG), of
+    the input's width (twice with `sideview`), decoded by the port's loader."""
     args = cli_demo.parse_args(argv)
     cli_demo.refuse_unported(args)
     tester = cli_demo.build_tester(args)
@@ -2532,13 +2797,14 @@ def demo_folder(label: str, argv: list[str], images: list[str], sideview: bool,
     seconds = time.perf_counter() - start
     counts = read_counts(label)
     for path, res in zip(images, results):
-        out = Path(args.output_folder) / (Path(path).stem + ".png")
+        out = Path(args.output_folder) / Path(path).name
         if not res:
             check(not out.exists(), f"{label}: {out} written for an image without boxes")
             continue
-        w = image_loader.image_size(path)[1]
-        png_w = int.from_bytes(out.read_bytes()[16:20], "big")   # IHDR width
-        check(png_w == (2 * w if sideview else w), f"{label}: {out} is {png_w} wide, input {w}")
+        h, w = image_loader.image_size(path)
+        written = image_loader.decode_image(str(out))
+        check(written.shape == (h, 2 * w if sideview else w, 3),
+              f"{label}: {out} is {written.shape}, input {h}x{w}")
         check(all(np.isfinite(res[k]).all() for k in ("verts", "orig_cam", "var")),
               f"{label}: non-finite results for {path}")
     return results, tester, counts, seconds
@@ -2569,6 +2835,38 @@ def demo_frame_vs_cpu(tester, img: np.ndarray, res: dict) -> None:
         bar = HEAD_TOL * max(1.0, float(np.abs(cpu[key]).max()))
         print(f"demo frame {key}, card vs CPU: {err:.3e} (tolerance {bar:.3e})")
         check(err <= bar, f"demo frame {key}: card and CPU disagree by {err}")
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    return float(10 * np.log10(255.0**2 / np.mean((a.astype(np.float64) - b) ** 2)))
+
+
+def demo_jpeg(tmp: Path, frames: dict[str, np.ndarray], img: np.ndarray) -> None:
+    """The folder pass's JPEG of the full-HD frame, decoded by the port's
+    loader, against the frame the pass encoded (`frames`: path -> frame);
+    and the card's JPEG encoder (`image_write.write_image`, nvJPEG here) on
+    the decoded full-HD input against cv2.imwrite's default quality on the
+    same picture (FULLHD_CV2_PSNR)."""
+    from poco_tpu_torch.runtime.image_write import write_image
+
+    check(len(frames) == 1, f"the folder pass wrote {len(frames)} full-HD frames")
+    (path, frame), = frames.items()
+    decoded = image_loader.decode_image(path)
+    check(decoded.shape == frame.shape, f"the demo's JPEG is {decoded.shape}, not {frame.shape}")
+    overlay_db = psnr(decoded, frame)
+    start = time.perf_counter()
+    write_image(str(tmp / "reencoded.jpg"), img)
+    encode_s = time.perf_counter() - start
+    reencoded_db = psnr(image_loader.decode_image(str(tmp / "reencoded.jpg")), img)
+    print(f"demo JPEG ({image_loader.route()} route): {Path(path).name} with its side view "
+          f"decodes to {overlay_db:.3f} dB PSNR of the rendered frame (at least "
+          f"{JPEG_OVERLAY_DB}); the full-HD input re-encoded: {reencoded_db:.3f} dB against "
+          f"cv2.imwrite's {FULLHD_CV2_PSNR} (within {JPEG_PSNR_DB}), "
+          f"{(tmp / 'reencoded.jpg').stat().st_size} bytes, encode and write "
+          f"{1e3 * encode_s:.1f} ms")
+    check(overlay_db >= JPEG_OVERLAY_DB, f"the demo's JPEG is {overlay_db} dB off its frame")
+    check(abs(reencoded_db - FULLHD_CV2_PSNR) <= JPEG_PSNR_DB,
+          f"the JPEG encoder's {reencoded_db} dB is not within {JPEG_PSNR_DB} of cv2's")
 
 
 def stage_split(tester, n: int, unit: str) -> str:
@@ -2604,10 +2902,24 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
 
     print(f"-- 4j (b) cli.demo --mode folder over {len(images)} JPEGs (the smoke set and "
           f"{FULLHD_JPEG.name}), POCO-CLIFF at full width, SMPL V=6890")
-    refine, tester, counts["demo_folder_refine"], refine_s = demo_folder(
-        "demo folder refine",
-        base + ["--image_folder", str(folder), "--output_folder", str(tmp / "refine"),
-                "--sideview", "--save_obj"], images, sideview=True)
+    # the full-HD frame as the folder pass hands it to the writer
+    from poco_tpu_torch.demo import tester as tester_module
+
+    written, write = {}, tester_module.write_image
+
+    def keeping(path, frame):
+        if Path(path).name == FULLHD_JPEG.name:
+            written[path] = frame.copy()
+        write(path, frame)
+
+    tester_module.write_image = keeping
+    try:
+        refine, tester, counts["demo_folder_refine"], refine_s = demo_folder(
+            "demo folder refine",
+            base + ["--image_folder", str(folder), "--output_folder", str(tmp / "refine"),
+                    "--sideview", "--save_obj"], images, sideview=True)
+    finally:
+        tester_module.write_image = write
     check(tester.model.cfg.backbone == "hrnet_w48_cls-cliff"
           and tester.smpl.v_template.shape[0] == 6890, "the demo did not run POCO-CLIFF at V=6890")
     # mixed sizes: the refine detector runs one dispatch a frame, then one a frame to infer
@@ -2630,6 +2942,7 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
           f"{res['orig_cam'][0].round(4).tolist()}")
     check(share >= OVERLAY_SHARE, "the fixed-camera overlay drew nothing")
     demo_frame_vs_cpu(tester, imgs[i], res)
+    demo_jpeg(tmp, written, imgs[i])
 
     yolo_res, tester, counts["demo_folder_yolo"], yolo_s = demo_folder(
         "demo folder yolo",
@@ -2674,6 +2987,35 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     check(counts["demo_video"]["skinning"] == expected, "video launches")
     check(len(rendered) == len(frames) and len(log) == sum(lengths), "video outputs")
     check(all(np.isfinite(r["verts"]).all() for r in video.values()), "video verts not finite")
+
+    print(f"-- 4j (d) cli.demo --mode webcam over the first {STREAM_FRAMES} frames of "
+          f"{DEMO_VIDEO_DIR.relative_to(REPO)} (a replayed camera), --smooth, pipelined and "
+          f"--stream_sequential")
+    streams = {}
+    tester = None
+    for label, flags in (("pipelined", []), ("sequential", ["--stream_sequential"])):
+        args = cli_demo.parse_args(base + [
+            "--mode", "webcam", "--webcam_source", str(DEMO_VIDEO_DIR), "--smooth",
+            "--max_frames", str(STREAM_FRAMES), "--output_folder", str(tmp / f"stream_{label}"),
+            *flags])
+        cli_demo.refuse_unported(args)
+        tester = tester or cli_demo.build_tester(args)   # one tester for both runs
+        reset_counts()
+        stats = cli_demo.run_webcam(args, tester)
+        counts[f"demo_stream_{label}"] = read_counts(f"demo stream {label}")
+        written = {p.name: p.read_bytes() for p in sorted((tmp / f"stream_{label}").glob("*.png"))}
+        streams[label] = written
+        print(f"stream {label}: {json.dumps(stats)}; launches "
+              f"{dict(counts[f'demo_stream_{label}'])} (expected skinning {2 * STREAM_FRAMES}: a "
+              f"refine dispatch and an inference a frame) on {card}")
+        check(stats["frames"] == STREAM_FRAMES and len(written) == STREAM_FRAMES,
+              f"stream {label}: {stats['frames']} frames, {len(written)} written")
+        check(counts[f"demo_stream_{label}"]["skinning"] == 2 * STREAM_FRAMES,
+              f"stream {label} launches")
+    same = streams["pipelined"] == streams["sequential"]
+    print(f"stream: the pipelined and the sequential runs' {STREAM_FRAMES} frames "
+          f"{'are' if same else 'are NOT'} bit-identical")
+    check(same, "the pipelined stream differs from the sequential one")
 
     # the kernel at the batches the demo launched it with, beside phase 3's
     worst = 0.0
@@ -2916,6 +3258,9 @@ def main() -> int:
     demo_counts, demo_err = phase_demo(ctx, args.seed, card)
     paths.update(demo_counts)
     errs["v2"] = max(errs["v2"], demo_err)
+    paths.update(phase_render_losses(ctx, pare, train, card))
+    paths["train_images"] = phase_train_images(ctx, train, card)
+    phase_launchers(card)
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)

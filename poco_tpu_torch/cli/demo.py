@@ -8,21 +8,28 @@ mesh overlays (the port's counterpart of the repo's `demo.py`).
         --image_folder FRAMES_DIR) [--smooth] [--device cuda|cpu]
     python -m poco_tpu_torch.cli.demo --mode directory --image_folder PARENT \\
         [--dir_chunk i --dir_chunk_size n]
+    python -m poco_tpu_torch.cli.demo --mode webcam --webcam_source FRAMES_DIR \\
+        [--max_frames N] [--stream_sequential] [--smooth]
 
 The flags are `demo.py`'s, under the same names and defaults, plus
-`--device` (cuda unless `--device cpu`). Outputs are PNG: a folder image
-`x.jpg` is written as `x.png` (the card's host has no JPEG encoder), the
+`--device` (cuda unless `--device cpu`). A folder image is written under
+its own name and format (`x.jpg` as a JPEG, quality 95, as cv2.imwrite
+writes it: libjpeg on a host that has it, nvJPEG on the card's host), the
 video mode's frames as `rendered/%06d.png`, assembled into an mp4 when
-ffmpeg is on PATH. `--vid_file` needs ffmpeg; `--image_folder` takes a
-directory of same-size frames instead.
+ffmpeg is on PATH, the webcam mode's as `stream_%06d.png`. `--vid_file`
+needs ffmpeg; `--image_folder` takes a directory of same-size frames
+instead. `--mode webcam` replays a directory of frames through the
+depth-1 dispatch-ahead stream (`demo/stream.py`; `--stream_sequential`
+turns the pipeline off) and prints its latencies and frames/s.
 
 `--detector yolo` reads Darknet `yolov3.weights` from `--yolo_weights`,
 $POCO_TPU_YOLO_WEIGHTS or data/detector/yolov3.weights (not in the repo;
 nothing fetches it) and, without one, turns into `refine` with a notice.
 `hog` and `refine` start from full-frame proposals (no HOG without
-OpenCV). Refused, each naming its ROADMAP.md item: `--mode webcam`,
-`--display`, `--wireframe`, `--draw_keypoints`, video-mode `--sideview`,
-`--tracking_method pose`, `--detector maskrcnn` and YouTube URLs.
+OpenCV). Refused, each naming its ROADMAP.md item: a camera or stream
+URL as `--webcam_source` (cv2.VideoCapture), `--display`, `--wireframe`,
+`--draw_keypoints`, video-mode `--sideview`, `--tracking_method pose`,
+`--detector maskrcnn` and YouTube URLs.
 TF32 is switched off for cuBLAS and cuDNN.
 """
 
@@ -55,7 +62,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "--image_folder is the frame directory")
     parser.add_argument("--image_folder", default="demo_data/images")
     parser.add_argument("--output_folder", default="out/demo",
-                        help="PNG overlays go here (x.jpg is written as x.png)")
+                        help="overlays go here, under each input's own name and format")
     parser.add_argument(
         "--detector", default="refine",
         choices=["yolo", "maskrcnn", "full_frame", "hog", "refine", "uncert"],
@@ -86,9 +93,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--min_cutoff", type=float, default=0.004)
     parser.add_argument("--beta", type=float, default=0.7)
     parser.add_argument("--no_render", action="store_true")
-    parser.add_argument("--webcam_source", default="0", help="unused: webcam mode is refused")
+    parser.add_argument("--webcam_source", default="0",
+                        help="webcam mode: a directory of frames to replay (a camera index "
+                             "or a stream URL is refused: cv2.VideoCapture)")
     parser.add_argument("--max_frames", type=int, default=None)
-    parser.add_argument("--stream_sequential", action="store_true")
+    parser.add_argument("--stream_sequential", action="store_true",
+                        help="webcam mode without the depth-1 dispatch-ahead pipeline")
     parser.add_argument("--render_crop", action="store_true",
                         help="render the overlay on the 224px crop instead of the frame")
     parser.add_argument("--no_uncert_color", action="store_true")
@@ -109,8 +119,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def refuse_unported(args) -> None:
     """Raise for every mode and flag the port does not have."""
     refused = []
-    if args.mode == "webcam":
-        refused.append("--mode webcam (demo/stream.py)")
+    if args.mode == "webcam" and not osp.isdir(args.webcam_source):
+        refused.append(f"--webcam_source {args.webcam_source!r}: a camera or stream URL "
+                       "(cv2.VideoCapture; a directory of frames replays)")
     if args.display:
         refused.append("--display (a cv2 window)")
     if args.wireframe:
@@ -232,6 +243,23 @@ def run_folder(args, tester) -> list:
     return results
 
 
+def run_webcam(args, tester) -> dict:
+    """The stream over a replayed directory (`demo/stream.py`)."""
+    from ..demo.stream import open_source, run_stream
+
+    source = open_source(args.webcam_source, max_frames=args.max_frames)
+    stats = run_stream(
+        tester, source,
+        output_folder=None if args.no_render else args.output_folder,
+        smooth=args.smooth, min_cutoff=args.min_cutoff, beta=args.beta,
+        uncert_color=not args.no_uncert_color, pipeline=not args.stream_sequential,
+    )
+    print(f"poco stream: {stats['frames']} frames, e2e p50 {stats['e2e_ms_p50']} ms "
+          f"(p90 {stats['e2e_ms_p90']}), model p50 {stats['model_ms_p50']} ms "
+          f"(p90 {stats['model_ms_p90']}), {stats['fps']} fps")
+    return stats
+
+
 def run_directory(args, tester) -> dict:
     subdirs = sorted(
         d for d in os.listdir(args.image_folder)
@@ -253,7 +281,8 @@ def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
     tester = build_tester(args)
-    run = {"video": run_video, "folder": run_folder, "directory": run_directory}[args.mode]
+    run = {"video": run_video, "folder": run_folder, "directory": run_directory,
+           "webcam": run_webcam}[args.mode]
     return run(args, tester)
 
 

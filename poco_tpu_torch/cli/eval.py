@@ -5,6 +5,7 @@
         --ckpt <.pt file or a logdir holding one> [--dataset 3dpw] \\
         [--data_dir data] [--smpl_dir DIR] [--batch_size 64] [--out report.json] \\
         [--flip_test] [--device cuda|cpu] [--dist]
+    python -m poco_tpu_torch.cli.eval --cfg GRID.yaml --make_launcher bash|slurm
 
 Prints (and with --out writes) one JSON report: `summary` (mpjpe,
 pa_mpjpe, v2v in mm, best_model_metric and, with an uncertainty head, the
@@ -17,6 +18,8 @@ kernel, so the numbers are fp32's.
 Over several processes (the POCO_* variables, or `--dist` under torchrun;
 see `cli/train.py`) each runs its share of every batch, the per-sample
 metrics are gathered, and rank 0 prints and writes the report.
+`--make_launcher` writes a launcher over the config's grid search, one
+`--cfg_id` a run, and exits, as in `cli/train.py`.
 """
 
 from __future__ import annotations
@@ -56,11 +59,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="form the process group from torchrun's environment (the "
                              "POCO_* variables form it without this flag); metrics are "
                              "gathered over processes, rank 0 prints and writes the report")
+    parser.add_argument("--make_launcher", default=None, choices=["bash", "slurm"],
+                        help="write a grid-search eval array launcher (scripts/<name>.sh or "
+                             ".sbatch, one --cfg_id a run) and exit")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.make_launcher:
+        from ..utils.cluster import EVAL, write_launcher
+
+        path = write_launcher(args.cfg, module=EVAL, scheduler=args.make_launcher)
+        print(f"launcher written: {path}")
+        return {"launcher": path}
     dist.form_world(args.device, auto=args.dist)
     try:
         return _evaluate(args)

@@ -4,6 +4,7 @@
         [--cfg_id 0] [--data_dir data] [--smpl_dir DIR] [--max_epochs N] \\
         [--resume <logdir>/last] [--logdir DIR] [--pretrained X.pt] \\
         [--device cuda|cpu] [--dist]
+    python -m poco_tpu_torch.cli.train --cfg GRID.yaml --make_launcher bash|slurm
 
 Expands the config's grid search and takes experiment `--cfg_id`, seeds,
 sets up the logdir (a timestamped one under LOG_DIR unless `--logdir`
@@ -22,8 +23,11 @@ maybe_initialize`: with POCO_COORDINATOR / POCO_NUM_PROCESSES /
 POCO_PROCESS_ID set, or with `--dist` under torchrun
 (`torchrun --nproc_per_node N -m poco_tpu_torch.cli.train --dist ...`).
 DATASET.BATCH_SIZE stays the global batch; rank 0 writes the logs and
-checkpoints and prints. Not ported yet: `--make_launcher` (grid-search
-launchers), refused.
+checkpoints and prints.
+
+`--make_launcher bash|slurm` writes `scripts/<name>.sh` (a loop) or
+`scripts/<name>.sbatch` (a SLURM array) that runs every experiment of the
+config's grid search with `--cfg_id`, and exits (`utils/cluster.py`).
 """
 
 from __future__ import annotations
@@ -111,17 +115,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="form the process group from torchrun's environment (the "
                              "POCO_* variables form it without this flag)")
     parser.add_argument("--make_launcher", default=None, choices=["bash", "slurm"],
-                        help="not ported yet: refused")
+                        help="write a grid-search array launcher (scripts/<name>.sh or "
+                             ".sbatch, one --cfg_id a run) and exit")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.make_launcher:
-        raise SystemExit(
-            "--make_launcher: grid-search launchers (utils/cluster.py) come with a later "
-            "slice of the port; run one --cfg_id at a time"
-        )
+        from ..utils.cluster import TRAIN, write_launcher
+
+        path = write_launcher(args.cfg, module=TRAIN, scheduler=args.make_launcher)
+        print(f"launcher written: {path}")
+        return {"launcher": path}
     dist.form_world(args.device, auto=args.dist)
     try:
         return _train(args)

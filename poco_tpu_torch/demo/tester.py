@@ -12,9 +12,10 @@ multiples of 8 or 4, frames to 256-px buckets, chunks to `batch_size`),
 which exists so that XLA reuses one compiled program: the rows here are
 the JAX outputs' real rows. As there, the heavy outputs are rounded to
 fp16 on the device (vertices and 3D joints on the folder path, and the
-2D joints too on the video path, `_forward_compact`). Outputs are PNG:
-the card's host has no JPEG encoder, so a folder image `x.jpg` is
-written as `x.png`. `stage_seconds` sums host-clock seconds by stage
+2D joints too on the video path, `_forward_compact`). The folder mode
+writes each overlay under its input's own name and format (`x.jpg` as a
+JPEG, `runtime/image_write.write_image`), as the JAX demo does; the
+video mode writes `%06d.png`. `stage_seconds` sums host-clock seconds by stage
 (decode, detect, poco, smooth, render, write).
 """
 
@@ -35,7 +36,7 @@ from ..constants import IMG_RES
 from ..data.inference import InferenceDataset, images_in_folder
 from ..eval.uncertainty import global_uncert, prepare_uncert
 from ..ops.preprocess import normalize_image, preprocess_crops
-from ..runtime.image_write import write_png
+from ..runtime.image_write import write_image, write_png
 from ..runtime.loader import read_image_rgb, read_images_rgb
 from ..smpl.lbs import SmplParams
 from ..utils.demo_utils import (
@@ -364,9 +365,9 @@ class PocoTester:
 
         For each image: detect, run crop + forward over all its detections
         at once, convert cameras and keypoints to original-image
-        coordinates, and with `render` write the overlay as
-        `<stem>.png` (twice the width with `sideview`). skip_frame=N takes
-        every Nth image; render_crop draws on the first detection's 224-px
+        coordinates, and with `render` write the overlay under its input's
+        own name and format (twice the width with `sideview`). skip_frame=N
+        takes every Nth image; render_crop draws on the first detection's 224-px
         crop with the crop camera (tester.py:256-280). `draw_keypoints`
         (`cv2.circle`) and `display` (a cv2 window) are refused.
         """
@@ -393,8 +394,7 @@ class PocoTester:
                 frame = self._render_folder_frame(img, img_path, result, output_folder,
                                                   sideview, save_obj, uncert_color, render_crop)
             with self._stage("write"):
-                stem = osp.splitext(osp.basename(img_path))[0]
-                write_png(osp.join(output_folder, f"{stem}.png"), frame)
+                write_image(osp.join(output_folder, osp.basename(img_path)), frame)
         return results
 
     def _render_folder_frame(self, img, img_path, result, output_folder, sideview,

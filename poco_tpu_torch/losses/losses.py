@@ -208,16 +208,9 @@ def poco_loss(
     pred: dict[str, Any], gt: dict[str, torch.Tensor], cfg: LossConfig = LossConfig()
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total POCO training loss and its terms (reference POCOLoss.forward,
-    losses.py:227-358). The render and part-segmentation terms come with
-    the soft rasterizer, a later slice of the port: where the JAX package
-    would add one (its flag set and its inputs given), this raises."""
-    if (cfg.use_smpl_segm_loss and "pred_segm_mask" in pred and "gt_segm_mask" in gt) or (
-        cfg.use_smpl_render_loss and "pred_smpl_render" in pred and "gt_smpl_render" in gt
-    ):
-        raise NotImplementedError(
-            "the render and part-segmentation losses are not ported yet "
-            "(they come with ops/soft_raster.py)"
-        )
+    losses.py:227-358). The part-segmentation and render terms enter where
+    their flag is set and both their inputs are given, as in the JAX
+    package."""
     has_smpl = gt["has_smpl"].float()
     has_pose_3d = gt["has_pose_3d"].float()
     var_pose = pred.get("var_pose")
@@ -257,6 +250,19 @@ def poco_loss(
         "loss/loss_shape": loss_shape * cfg.shape_loss_weight,
         "loss/loss_cam": loss_cam,
     }
+
+    # the optional part-segmentation cross-entropy (reference
+    # losses.py:334-340) and differentiable-render MSE (losses.py:328-332)
+    if cfg.use_smpl_segm_loss and "pred_segm_mask" in pred and "gt_segm_mask" in gt:
+        from .segmentation import part_segmentation_loss
+
+        loss_dict["loss/loss_smpl_segm"] = part_segmentation_loss(
+            pred["pred_segm_mask"], gt["gt_segm_mask"], has_smpl
+        ) * cfg.smpl_segm_loss_weight
+    if cfg.use_smpl_render_loss and "pred_smpl_render" in pred and "gt_smpl_render" in gt:
+        loss_dict["loss/loss_smpl_render"] = batch_mean(
+            (pred["pred_smpl_render"] - gt["gt_smpl_render"]) ** 2
+        ) * cfg.smpl_render_loss_weight
 
     # the flow's calibration term (reference losses.py:342-347)
     log_phi = pred.get("log_phi")

@@ -1,15 +1,23 @@
-"""PNG writer on the standard library (`zlib`, `struct`): the demo's one
-output format. The card's host has no image codec for writing (no OpenCV,
-PIL, libpng or JPEG encoder), so where the JAX demo's `cv2.imwrite`
-writes the input's format, the port writes PNG.
+"""Image writers of the demo and the trainer: PNG on the standard library
+(`zlib`, `struct`) and JPEG through the port's native library
+(`runtime/loader.py:encode_jpeg`: libjpeg on a host that has it, nvJPEG's
+encoder on the card's host). `write_image` picks the format from the
+file's extension as `cv2.imwrite` does, so the demo writes the names and
+formats the JAX demo writes. A JPEG that cannot be encoded raises; no
+other format is written in its place.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
 import numpy as np
+
+from .loader import encode_jpeg
+
+JPEG_QUALITY = 95  # cv2.imwrite's default (IMWRITE_JPEG_QUALITY)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -42,3 +50,18 @@ def write_png(path: str, image: np.ndarray) -> None:
     """Write `image` (RGB or grey uint8) to `path` as PNG."""
     with open(path, "wb") as f:
         f.write(encode_png(image))
+
+
+def write_image(path: str, image: np.ndarray) -> None:
+    """Write RGB uint8 `image` to `path` in the format its extension names:
+    `.jpg` / `.jpeg` as JPEG (quality 95, 4:2:0), `.png` as PNG. Any other
+    extension raises."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".jpg", ".jpeg"):
+        data = encode_jpeg(np.asarray(image, np.uint8), JPEG_QUALITY)
+        with open(path, "wb") as f:
+            f.write(data)
+    elif ext == ".png":
+        write_png(path, image)
+    else:
+        raise ValueError(f"{path}: the port writes .jpg, .jpeg and .png images only")

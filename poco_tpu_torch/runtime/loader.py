@@ -2,6 +2,7 @@
 `native/poco_loader.cpp` (the counterpart of `poco_tpu.runtime.loader`).
 
     decode_image(path_or_bytes)                   -> (H, W, 3) uint8 RGB
+    encode_jpeg(rgb, quality=95)                  -> JPEG bytes
     affine_crop(img, center, bbox_size, res)      -> (R, R, 3) float32
     affine_warp(img, affine, gain, res)           -> (R, R, 3) float32
     batch_decode_crop(paths, centers, sizes, res) -> (N, R, R, 3) float32
@@ -48,7 +49,8 @@ _STATUS = {
     -3: "unreadable file (missing, empty or over 512 MiB)",
     -6: "16-bit PNG: the loader reads 8-bit PNG only (libpng's 16-to-8 "
         "conversion is not cv2's)",
-    -7: "CUDA or nvJPEG failure while decoding on the card",
+    -7: "CUDA or nvJPEG failure on the card",
+    -8: "the JPEG encoder failed",
 }
 
 _lib = None
@@ -123,6 +125,11 @@ def _load():
         lib.poco_decode_image.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, int_p, int_p,
+        ]
+        lib.poco_encode_jpeg.restype = ctypes.c_int
+        lib.poco_encode_jpeg.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
         ]
         lib.poco_affine_crop.restype = None
         lib.poco_affine_crop.argtypes = [
@@ -221,6 +228,29 @@ def decode_image(data: bytes | str | os.PathLike) -> np.ndarray:
     if rc != 0:
         raise ValueError(_failure(rc, what))
     return out
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) RGB uint8 -> JPEG bytes at `quality` with 4:2:0 chroma (the
+    settings of `cv2.imwrite`'s default), on the library's route: libjpeg
+    on the host, or nvJPEG on the card. Raises when the encoder fails."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, not {image.shape} {image.dtype}")
+    lib = _load()
+    h, w = image.shape[:2]
+    size = ctypes.c_size_t()
+    cap = h * w * 3 + 65536
+    while True:
+        out = np.empty(cap, np.uint8)
+        rc = lib.poco_encode_jpeg(image.ctypes.data, h, w, int(quality), out.ctypes.data,
+                                  cap, ctypes.byref(size))
+        if rc != -9:
+            break
+        cap = size.value
+    if rc != 0:
+        raise RuntimeError(_failure(rc, f"JPEG encode of a {w}x{h} image ({route()} route)"))
+    return out[:size.value].tobytes()
 
 
 def decode_jpeg(data: bytes | str | os.PathLike) -> np.ndarray:

@@ -23,6 +23,12 @@
 //     only.
 // The crop, the warp and EXIF handling are the same code in both builds.
 //
+// JPEG encode (poco_encode_jpeg, the demo's outputs) goes the build's
+// route too: jpeg_compress on libjpeg; with nvJPEG, the YCbCr 4:2:0 planes
+// made on the host as libjpeg makes them and nvjpegEncodeYUV on the card.
+// Both take RGB8 at a quality (the demo's is cv2.imwrite's default, 95)
+// with 4:2:0 chroma, as cv2 writes.
+//
 // Built by poco_tpu_torch/runtime/loader.py with g++:
 //   -ljpeg [-lpng -DPOCO_HAS_PNG]        (route "libjpeg"), or
 //   -DPOCO_NVJPEG -I<cuda>/include -L<cuda>/lib64 -lnvjpeg -lcudart
@@ -30,7 +36,8 @@
 //
 // Status codes: 0 ok, -1 decode error, -2 over the size limit, -3 file
 // unreadable, -5 unsupported format, -6 16-bit PNG, -7 CUDA or nvJPEG
-// failure.
+// failure, -8 encode error, -9 encode buffer too small (the size needed is
+// returned).
 
 #include <cstdint>
 #include <cstdio>
@@ -61,6 +68,8 @@ constexpr int kUnreadable = -3;
 constexpr int kUnsupported = -5;
 constexpr int kPng16 = -6;
 constexpr int kCudaError = -7;
+constexpr int kEncodeError = -8;
+constexpr int kBufferTooSmall = -9;
 
 inline bool is_png(const uint8_t* d, size_t n) {
   static const uint8_t kMagic[8] = {0x89, 'P', 'N', 'G', '\r', '\n',
@@ -290,6 +299,42 @@ void jpeg_error_exit(j_common_ptr cinfo) {
   longjmp(err->setjmp_buffer, 1);
 }
 
+// Encode RGB8 (rows packed at w*3) to a JPEG in memory: baseline, the
+// given quality, 4:2:0 (jpeg_set_defaults' sampling), as cv2.imwrite.
+int encode_jpeg_libjpeg(const uint8_t* rgb, int h, int w, int quality,
+                        std::vector<uint8_t>& out) {
+  jpeg_compress_struct cinfo;
+  JpegErrorMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = jpeg_error_exit;
+  unsigned char* mem = nullptr;
+  unsigned long mem_size = 0;
+  if (setjmp(jerr.setjmp_buffer)) {
+    jpeg_destroy_compress(&cinfo);
+    std::free(mem);
+    return kEncodeError;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_mem_dest(&cinfo, &mem, &mem_size);
+  cinfo.image_width = static_cast<JDIMENSION>(w);
+  cinfo.image_height = static_cast<JDIMENSION>(h);
+  cinfo.input_components = 3;
+  cinfo.in_color_space = JCS_RGB;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  jpeg_start_compress(&cinfo, TRUE);
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<JSAMPROW>(
+        rgb + static_cast<size_t>(cinfo.next_scanline) * w * 3);
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  out.assign(mem, mem + mem_size);
+  jpeg_destroy_compress(&cinfo);
+  std::free(mem);
+  return 0;
+}
+
 // Decode a JPEG byte buffer to RGB8 as stored (no EXIF), into a buffer
 // sized from the header.
 int decode_jpeg_raw(const uint8_t* data, size_t size,
@@ -353,10 +398,15 @@ struct Decoder {
   uint8_t* dev = nullptr;
   size_t cap = 0;
   std::vector<uint8_t> planes;  // the decoded planes, copied back
+  nvjpegEncoderState_t enc_state = nullptr;   // made at the first encode
+  nvjpegEncoderParams_t enc_params = nullptr;
   bool ok = false;
 
   int jpeg(const uint8_t* data, size_t size, std::vector<uint8_t>& out,
            int max_h, int max_w, int* h, int* w);
+  int encode(const uint8_t* rgb, int h, int w, int quality,
+             std::vector<uint8_t>& out);
+  int reserve(size_t bytes);
 };
 
 std::once_flag g_handle_once;
@@ -440,14 +490,7 @@ int Decoder::jpeg(const uint8_t* data, size_t size, std::vector<uint8_t>& out,
     offsets[c] = bytes;
     bytes += static_cast<size_t>(widths[c]) * heights[c];
   }
-  if (bytes > cap) {
-    if (dev != nullptr && cudaFree(dev) != cudaSuccess) return kCudaError;
-    dev = nullptr;
-    cap = 0;
-    if (cudaMalloc(reinterpret_cast<void**>(&dev), bytes) != cudaSuccess)
-      return kCudaError;
-    cap = bytes;
-  }
+  if (reserve(bytes) != 0) return kCudaError;
   nvjpegImage_t image;
   std::memset(&image, 0, sizeof(image));
   for (int c = 0; c < components; ++c) {
@@ -469,6 +512,121 @@ int Decoder::jpeg(const uint8_t* data, size_t size, std::vector<uint8_t>& out,
              hf, vf, out);
   *out_h = h;
   *out_w = w;
+  return 0;
+}
+
+// Device memory of at least `bytes`, replaced only when larger than before.
+int Decoder::reserve(size_t bytes) {
+  if (bytes <= cap) return 0;
+  if (dev != nullptr && cudaFree(dev) != cudaSuccess) return kCudaError;
+  dev = nullptr;
+  cap = 0;
+  if (cudaMalloc(reinterpret_cast<void**>(&dev), bytes) != cudaSuccess)
+    return kCudaError;
+  cap = bytes;
+  return 0;
+}
+
+// RGB8 -> the Y, Cb and Cr planes of a 4:2:0 JPEG, made as libjpeg's
+// compressor makes them: jccolor.c's fixed-point RGB -> YCbCr (16-bit
+// fractions, Cb and Cr rounded with 0.5 - epsilon) and jcsample.c's
+// h2v2_downsample (2x2 sums with the bias 1, 2, 1, 2, ... along a row),
+// the last column and row repeated for odd sizes.
+void rgb_to_ycc420(const uint8_t* rgb, int h, int w, std::vector<uint8_t>& planes) {
+  auto fix = [](double x) { return static_cast<int32_t>(x * 65536.0 + 0.5); };
+  const int32_t half = 1 << 15, offset = 128 << 16;
+  const int cw = (w + 1) / 2, ch = (h + 1) / 2;
+  planes.resize(static_cast<size_t>(h) * w + 2 * static_cast<size_t>(ch) * cw);
+  uint8_t* y = planes.data();
+  uint8_t* cb = y + static_cast<size_t>(h) * w;
+  uint8_t* cr = cb + static_cast<size_t>(ch) * cw;
+  std::vector<uint8_t> full_cb(static_cast<size_t>(2 * ch) * 2 * cw);
+  std::vector<uint8_t> full_cr(full_cb.size());
+  for (int r = 0; r < 2 * ch; ++r) {
+    const uint8_t* row = rgb + static_cast<size_t>(std::min(r, h - 1)) * w * 3;
+    for (int c = 0; c < 2 * cw; ++c) {
+      const uint8_t* px = row + std::min(c, w - 1) * 3;
+      const int32_t R = px[0], G = px[1], B = px[2];
+      if (r < h && c < w)
+        y[static_cast<size_t>(r) * w + c] = static_cast<uint8_t>(
+            (fix(0.29900) * R + fix(0.58700) * G + fix(0.11400) * B + half) >> 16);
+      const size_t i = static_cast<size_t>(r) * 2 * cw + c;
+      full_cb[i] = static_cast<uint8_t>((-fix(0.16874) * R - fix(0.33126) * G +
+                                         fix(0.50000) * B + offset + half - 1) >> 16);
+      full_cr[i] = static_cast<uint8_t>((fix(0.50000) * R - fix(0.41869) * G -
+                                         fix(0.08131) * B + offset + half - 1) >> 16);
+    }
+  }
+  for (int r = 0; r < ch; ++r) {
+    int bias = 1;
+    for (int c = 0; c < cw; ++c) {
+      const size_t a = static_cast<size_t>(2 * r) * 2 * cw + 2 * c, b = a + 2 * cw;
+      cb[static_cast<size_t>(r) * cw + c] = static_cast<uint8_t>(
+          (full_cb[a] + full_cb[a + 1] + full_cb[b] + full_cb[b + 1] + bias) >> 2);
+      cr[static_cast<size_t>(r) * cw + c] = static_cast<uint8_t>(
+          (full_cr[a] + full_cr[a + 1] + full_cr[b] + full_cr[b + 1] + bias) >> 2);
+      bias ^= 3;
+    }
+  }
+}
+
+// Encode RGB8 on the card: the 4:2:0 planes made on the host as libjpeg
+// makes them, copied up, nvjpegEncodeYUV at the given quality, the
+// bitstream copied back. (nvjpegEncodeImage's own RGB conversion and
+// chroma decimation wrote the full-HD test frame 3.5 dB PSNR below
+// cv2.imwrite at quality 95 on an H100's host; these planes, 0.1 dB:
+// chip_smoke.py phase 4j.)
+int Decoder::encode(const uint8_t* rgb, int h, int w, int quality,
+                    std::vector<uint8_t>& out) {
+  if (!ok) return kCudaError;
+  if (enc_state == nullptr &&
+      nvjpegEncoderStateCreate(g_handle, &enc_state, stream) !=
+          NVJPEG_STATUS_SUCCESS) {
+    enc_state = nullptr;
+    return kCudaError;
+  }
+  if (enc_params == nullptr &&
+      nvjpegEncoderParamsCreate(g_handle, &enc_params, stream) !=
+          NVJPEG_STATUS_SUCCESS) {
+    enc_params = nullptr;
+    return kCudaError;
+  }
+  if (nvjpegEncoderParamsSetQuality(enc_params, quality, stream) !=
+          NVJPEG_STATUS_SUCCESS ||
+      nvjpegEncoderParamsSetSamplingFactors(enc_params, NVJPEG_CSS_420,
+                                            stream) != NVJPEG_STATUS_SUCCESS ||
+      nvjpegEncoderParamsSetOptimizedHuffman(enc_params, 0, stream) !=
+          NVJPEG_STATUS_SUCCESS)
+    return kEncodeError;
+  rgb_to_ycc420(rgb, h, w, planes);
+  const size_t luma = static_cast<size_t>(h) * w;
+  const size_t cw = (w + 1) / 2, chroma = cw * ((h + 1) / 2);
+  if (reserve(planes.size()) != 0 ||
+      cudaMemcpyAsync(dev, planes.data(), planes.size(), cudaMemcpyHostToDevice,
+                      stream) != cudaSuccess)
+    return kCudaError;
+  nvjpegImage_t image;
+  std::memset(&image, 0, sizeof(image));
+  image.channel[0] = dev;
+  image.pitch[0] = static_cast<size_t>(w);
+  image.channel[1] = dev + luma;
+  image.pitch[1] = cw;
+  image.channel[2] = dev + luma + chroma;
+  image.pitch[2] = cw;
+  if (nvjpegEncodeYUV(g_handle, enc_state, enc_params, &image, NVJPEG_CSS_420,
+                      w, h, stream) != NVJPEG_STATUS_SUCCESS)
+    return kEncodeError;
+  size_t length = 0;
+  if (nvjpegEncodeRetrieveBitstream(g_handle, enc_state, nullptr, &length,
+                                    stream) != NVJPEG_STATUS_SUCCESS ||
+      cudaStreamSynchronize(stream) != cudaSuccess)
+    return kEncodeError;
+  out.resize(length);
+  if (nvjpegEncodeRetrieveBitstream(g_handle, enc_state, out.data(), &length,
+                                    stream) != NVJPEG_STATUS_SUCCESS ||
+      cudaStreamSynchronize(stream) != cudaSuccess)
+    return kEncodeError;
+  out.resize(length);
   return 0;
 }
 
@@ -832,6 +990,29 @@ void poco_batch_decode_affine(const char** paths, int n,
       statuses[i] = kUnreadable;  // no exception may escape a worker thread
     }
   });
+}
+
+// Encode RGB8 (h, w, 3), rows packed, as a JPEG at `quality` with 4:2:0
+// chroma into `out` (capacity `cap`); *out_size is the JPEG's length, or
+// the length needed when the status is -9.
+int poco_encode_jpeg(const uint8_t* rgb, int h, int w, int quality,
+                     uint8_t* out, size_t cap, size_t* out_size) {
+  try {
+    std::vector<uint8_t> jpeg;
+#ifdef POCO_NVJPEG
+    DecoderLease lease;
+    const int rc = lease.get()->encode(rgb, h, w, quality, jpeg);
+#else
+    const int rc = encode_jpeg_libjpeg(rgb, h, w, quality, jpeg);
+#endif
+    if (rc != 0) return rc;
+    *out_size = jpeg.size();
+    if (jpeg.size() > cap) return kBufferTooSmall;
+    std::memcpy(out, jpeg.data(), jpeg.size());
+    return 0;
+  } catch (...) {
+    return kEncodeError;  // no exception crosses the C boundary
+  }
 }
 
 }  // extern "C"

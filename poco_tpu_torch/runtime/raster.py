@@ -55,6 +55,11 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
+            lib.poco_label_triangles.restype = None
+            lib.poco_label_triangles.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ]
             lib.poco_raster_mesh.restype = None
             lib.poco_raster_mesh.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -100,4 +105,26 @@ def raster_mesh(
         c_c.ctypes.data, m_c.ctypes.data,
         len(uv_c), len(f_c),
     )
+    return out
+
+
+def label_triangles(labels: np.ndarray, pts: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """Paint integer triangles over a copy of `labels` in the given order
+    (the last face over a pixel wins) and return it.
+
+    Args:
+        labels: (H, W) uint8.
+        pts: (F, 3, 2) integer pixel corners (x, y).
+        values: (F,) uint8 label of each face.
+    Returns:
+        (H, W) uint8, each face filled as `cv2.fillPoly(img, [pts], value)`
+        fills it (LINE_8, shift 0).
+    """
+    lib = _load()
+    out = np.array(labels, np.uint8, order="C", copy=True)
+    pts_c = np.ascontiguousarray(pts, np.int32)
+    v_c = np.ascontiguousarray(values, np.uint8)
+    h, w = out.shape
+    lib.poco_label_triangles(out.ctypes.data, h, w, pts_c.ctypes.data, v_c.ctypes.data,
+                             len(v_c))
     return out

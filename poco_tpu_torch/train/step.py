@@ -6,6 +6,9 @@ Replaces the reference's LitModule.training_step / validation_step
   * `prepare_gt` builds the supervision on the device: the GT mesh and
     joints from a SMPL forward on the GT pose and shape (no gradient), and
     the crop keypoints and 3D joints a batch lacks;
+  * `render_targets` renders the GT mesh's soft silhouette and part
+    labels when the render or part-segmentation loss is on
+    (`ops/soft_raster.py`);
   * `make_train_step` runs the model in train mode, `poco_loss`, the
     backward and the optimizer step, each in a `record_function` range of
     TRAIN_STAGES, so a profile splits the step's device time by stage.
@@ -26,6 +29,7 @@ from ..constants import FOCAL_LENGTH, IMG_RES, J24_TO_J14
 from ..losses.losses import LossConfig, poco_loss
 from ..ops.camera import perspective_projection
 from ..ops.rotation import axis_angle_to_rotmat
+from ..ops.soft_raster import soft_part_probs, soft_silhouette
 from ..parallel import distributed
 from ..smpl.lbs import SmplParams
 from ..smpl.model import smpl_49
@@ -65,6 +69,39 @@ def prepare_gt(batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict[str, to
     return gt
 
 
+@torch.no_grad()
+def render_targets(batch: dict[str, torch.Tensor], gt: dict[str, torch.Tensor],
+                   smpl: SmplParams, loss_cfg: LossConfig) -> dict[str, torch.Tensor]:
+    """The render and part-segmentation targets (the JAX package's
+    step.py:99-121, in place of the reference's neural_renderer,
+    trainer.py:251-275): the GT mesh's soft silhouette under the batch's
+    `gt_cam` (default [0.9, 0, 0]) with that camera as `gt_cam_render`,
+    and the argmax of its soft part probabilities, the skinning weights
+    as the part assignment. Empty when neither loss is on."""
+    if not (loss_cfg.use_smpl_render_loss or loss_cfg.use_smpl_segm_loss):
+        return {}
+    verts = gt["vertices"]
+    gt_cam = batch.get("gt_cam")
+    if gt_cam is None:
+        gt_cam = torch.tensor([[0.9, 0.0, 0.0]], device=verts.device).expand(len(verts), 3)
+    out = {}
+    if loss_cfg.use_smpl_render_loss:
+        out["gt_smpl_render"] = soft_silhouette(verts, gt_cam)
+        out["gt_cam_render"] = gt_cam
+    if loss_cfg.use_smpl_segm_loss:
+        out["gt_segm_mask"] = soft_part_probs(verts, gt_cam, smpl.lbs_weights).argmax(-1)
+    return out
+
+
+def add_pred_render(out: dict, gt: dict) -> dict:
+    """The render loss's prediction, in place: the predicted mesh's soft
+    silhouette under the GT render camera, when the render loss is on
+    (the JAX package's step.py:136-140)."""
+    if "gt_cam_render" in gt:
+        out["pred_smpl_render"] = soft_silhouette(out["smpl_vertices"], gt["gt_cam_render"])
+    return out
+
+
 def _fp32(out: dict) -> dict:
     """Floating outputs of an autocast region as fp32, for the loss."""
     return {
@@ -84,16 +121,14 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
     (a `ModuleAdam`). Returns the loss terms (0-d tensors on the device),
     `grad_norm` (the global norm before clipping) and two auxiliaries the
     trainer pops: `_var_pose` and `_viz` (4 rows of the meshes and camera).
+    With TRAINING.USE_SMPL_RENDER_LOSS or USE_SMPL_SEGM_LOSS, the GT
+    stage also renders the GT mesh's soft silhouette and part labels
+    (`render_targets`), and the forward stage the prediction's silhouette.
     """
-    if loss_cfg.use_smpl_render_loss or loss_cfg.use_smpl_segm_loss:
-        raise NotImplementedError(
-            "the render and part-segmentation losses (TRAINING.USE_SMPL_RENDER_LOSS, "
-            "USE_SMPL_SEGM_LOSS) need ops/soft_raster.py, a later slice of the port"
-        )
-
     def step(batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict:
         with record_function(TRAIN_STAGES[0]):
             gt = prepare_gt(batch, smpl)
+            gt.update(render_targets(batch, gt, smpl, loss_cfg))
         with record_function(TRAIN_STAGES[1]):
             model.train()
             model_batch = dict(batch, gt_pose_rotmat=gt["gt_pose_rotmat"])
@@ -101,7 +136,7 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
             with torch.autocast(device_type, dtype=autocast_dtype or torch.bfloat16,
                                 enabled=autocast_dtype is not None):
                 out = model(model_batch, smpl)
-            out = _fp32(out)
+            out = add_pred_render(_fp32(out), gt)
             loss, loss_dict = poco_loss(out, gt, loss_cfg)
         with record_function(TRAIN_STAGES[2]):
             optimizer.zero_grad()

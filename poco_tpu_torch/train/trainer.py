@@ -21,9 +21,15 @@ model, loss and optimizer from the hparams tree and runs epochs:
 The trainer owns its randomness: it seeds torch's generators (CPU and
 CUDA) from SEED_VALUE before building the model, and the dropout masks
 come from them. `PRECISION: 16` runs the model under a bf16 autocast,
-with SMPL and the losses in fp32. TRAINING.SAVE_IMAGES waits for `viz/`
-and is refused. DATASET.USE_SYNTHETIC_OCCLUSION is refused too: the JAX
-trainer passes its datasets no occluders, so the flag does nothing there;
+with SMPL and the losses in fp32. With TRAINING.SAVE_IMAGES, every
+LOG_SAVE_INTERVAL step renders the first 4 rows of the (global) batch as
+a [crop | GT mesh | predicted mesh] grid into
+`<logdir>/images/train_e{epoch}_s{step}.png` (`viz/train_viz.py`; rank 0
+renders). With the environment variable POCO_TPU_PROFILE_DIR set (the JAX
+trainer's knob), epoch 0's first 5 steps are traced by torch.profiler
+(CPU and CUDA activities) into `<dir>/train_e0_rank{r}.json`, a Chrome
+trace. DATASET.USE_SYNTHETIC_OCCLUSION is refused: the JAX trainer passes
+its datasets no occluders, so the flag does nothing there;
 `PocoDataset(occluders=...)` takes them.
 
 Over several processes (`parallel.distributed`), each loads its rows of
@@ -103,11 +109,6 @@ class Trainer:
         seed: int = 0,
         device="cuda",
     ):
-        if hparams.TRAINING.get("SAVE_IMAGES"):
-            raise NotImplementedError(
-                "TRAINING.SAVE_IMAGES renders mesh grids with viz/, which comes "
-                "with the demo slice of the port"
-            )
         if hparams.DATASET.get("USE_SYNTHETIC_OCCLUSION"):
             raise NotImplementedError(
                 "DATASET.USE_SYNTHETIC_OCCLUSION: the JAX package's trainer builds its "
@@ -340,14 +341,19 @@ class Trainer:
         n_crops = 0
         start = time.perf_counter()
         last_metrics: dict[str, float] = {}
+        # the JAX trainer's profiling hook (trainer.py:466-472,536-542): a
+        # trace of epoch 0's first steps
+        profile_dir = os.environ.get("POCO_TPU_PROFILE_DIR") if epoch == 0 else None
+        profiler = self._start_profiler() if profile_dir else None
         for step_i, host_batch in enumerate(loader):
-            metrics = self.train_step(self._device_batch(host_batch), self.smpl)
+            batch = self._device_batch(host_batch)
+            metrics = self.train_step(batch, self.smpl)
             self.step += 1
             self._global_step += 1
             n_crops += host_batch["img"].shape[0] * self.world
             if step_i % self.hparams.TRAINING.LOG_SAVE_INTERVAL == 0:
                 var_pose = metrics.pop("_var_pose", None)
-                metrics.pop("_viz", None)
+                viz = metrics.pop("_viz", None)
                 last_metrics = {k: float(v) for k, v in metrics.items()}
                 self._log({"epoch": epoch, "step": step_i, **last_metrics})
                 # per-joint uncertainty statistics (reference
@@ -357,6 +363,13 @@ class Trainer:
                     rows = dist.allgather(var_pose.float().cpu().numpy())
                     if self.is_main:
                         self.uncert_stats.update(rows)
+                if self.hparams.TRAINING.get("SAVE_IMAGES") and viz is not None:
+                    self._save_images(batch["img"], viz, f"train_e{epoch}_s{step_i}")
+            if profiler is not None and step_i == 4:
+                self._stop_profiler(profiler, profile_dir, epoch)
+                profiler = None
+        if profiler is not None:
+            self._stop_profiler(profiler, profile_dir, epoch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         last_metrics["crops_per_sec"] = n_crops / max(time.perf_counter() - start, 1e-9)
@@ -364,6 +377,40 @@ class Trainer:
             self.uncert_stats.dump(self.logdir, f"train_e{epoch}")
             self.uncert_stats.reset()
         return last_metrics
+
+    def _save_images(self, images: torch.Tensor, viz: dict, tag: str, n: int = 4) -> None:
+        """The mesh grid of the global batch's first `n` rows (the gathers
+        are collective; rank 0 renders and writes)."""
+        def head(x):
+            return dist.allgather(x[:n].float().cpu().numpy())[:n]
+
+        rows = {k: head(v) for k, v in viz.items()}
+        imgs = head(images)
+        if not self.is_main:
+            return
+        from ..viz.train_viz import render_training_grid, save_training_grid
+
+        grid = render_training_grid(imgs, rows["pred_verts"], rows["pred_cam"],
+                                    self.smpl.faces.cpu().numpy(), gt_verts=rows["gt_verts"])
+        save_training_grid(grid, self.logdir, tag)
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, profile_dir: str, epoch: int) -> None:
+        """Stop the trace (the device's work included) and write it as
+        `<profile_dir>/train_e{epoch}_rank{r}.json`."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(
+            os.path.join(profile_dir, f"train_e{epoch}_rank{dist.process_index()}.json"))
 
     def validate(self, epoch: int) -> dict[str, float]:
         from ..eval.runner import run_eval

@@ -6,7 +6,8 @@ prefix (port of the torch branch of
 (`save_checkpoint` / `load_checkpoint`): the model's state_dict under
 `model`, the optimizer's state, the step and the LR scale. Orbax
 directories, the JAX package's own checkpoints, are refused: reading them
-needs orbax.
+needs orbax: `tools/orbax_to_torch.py`, run where JAX and orbax are
+installed, converts a JAX trainer checkpoint into the port's.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def _is_orbax(path: str) -> bool:
 def _refuse_orbax(path: str):
     raise ValueError(
         f"{path} is an orbax checkpoint directory (the JAX package's format); "
-        "the port reads torch .pt/.ckpt files only"
+        "the port reads torch .pt/.ckpt files only: convert it with "
+        "tools/orbax_to_torch.py (where JAX and orbax are installed)"
     )
 
 

@@ -65,7 +65,7 @@ from poco_tpu_torch.demo import tracker
 from poco_tpu_torch.demo.tester import PocoTester
 from poco_tpu_torch.models.poco import POCO
 from poco_tpu_torch.runtime import raster
-from poco_tpu_torch.runtime.image_write import encode_png, write_png
+from poco_tpu_torch.runtime.image_write import encode_png, write_image, write_png
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.utils import demo_utils, kp_utils
 from poco_tpu_torch.utils.one_euro import one_euro_track
@@ -490,10 +490,64 @@ def test_image_folder_matches_jax(testers, frame_folder, tmp_path, options):
 
 
 def test_folder_output_is_png_under_the_stem(testers, tmp_path):
-    port, _ = testers
+    """The folder mode writes each input's own name in its own format, as
+    the JAX demo's cv2.imwrite does (tester.py:769-770): JPEG inputs give
+    JPEG overlays, which decode to the frame size, and the names equal
+    the JAX demo's."""
+    port, ref = testers
     folder = _jpeg_folder(tmp_path / "jpg")
     port.run_on_image_folder(folder, str(tmp_path / "out"))
-    assert sorted(os.listdir(tmp_path / "out")) == ["000000.png", "000001.png", "000002.png"]
+    ref.run_on_image_folder(folder, str(tmp_path / "jax"))
+    names = ["000000.jpg", "000001.jpg", "000002.jpg"]
+    assert sorted(os.listdir(tmp_path / "out")) == sorted(os.listdir(tmp_path / "jax")) == names
+    for name in names:
+        data = (tmp_path / "out" / name).read_bytes()
+        assert data[:3] == b"\xff\xd8\xff"
+        assert cv2.imread(str(tmp_path / "out" / name)).shape == cv2.imread(
+            str(Path(folder) / name)).shape
+
+
+JPEG_PSNR_DB = 0.5   # the port's JPEG against cv2.imwrite's default, PSNR to the frame
+
+
+@pytest.mark.parametrize("hw", [(120, 160), (151, 97)])
+def test_jpeg_writer_matches_cv2_imwrite(tmp_path, hw):
+    """`write_image` to .jpg on the libjpeg route: its file decodes (by
+    cv2 and the port's loader alike) to within 0.5 dB PSNR of the file
+    `cv2.imwrite` writes at its default quality, both against the frame."""
+    from poco_tpu_torch.runtime.loader import decode_image, route
+
+    assert route() == "libjpeg"
+    frame = _scene(21, hw)
+    write_image(str(tmp_path / "port.jpg"), frame)
+    cv2.imwrite(str(tmp_path / "cv2.jpg"), frame[:, :, ::-1])
+
+    def psnr(img):
+        return 10 * np.log10(255.0**2 / np.mean((img.astype(np.float64) - frame) ** 2))
+
+    ours = decode_image(str(tmp_path / "port.jpg"))
+    np.testing.assert_array_equal(ours, cv2.imread(str(tmp_path / "port.jpg"))[:, :, ::-1])
+    want = psnr(cv2.imread(str(tmp_path / "cv2.jpg"))[:, :, ::-1])
+    assert abs(psnr(ours) - want) <= JPEG_PSNR_DB and want > 30
+    write_image(str(tmp_path / "x.JPEG"), frame)
+    assert decode_image(str(tmp_path / "x.JPEG")).shape == frame.shape
+    write_image(str(tmp_path / "x.png"), frame)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "x.png"))[:, :, ::-1], frame)
+    with pytest.raises(ValueError, match="jpg, .jpeg and .png"):
+        write_image(str(tmp_path / "x.bmp"), frame)
+
+
+def test_chip_smoke_jpeg_reference_is_cv2s():
+    """chip_smoke.py holds the card's JPEG encoder to FULLHD_CV2_PSNR: the
+    PSNR of cv2.imwrite's default-quality re-encode of the full-HD test
+    frame, as cv2 decodes it."""
+    import chip_smoke
+
+    img = cv2.imread(str(REPO / "tests" / "data" / "torch_fullhd.jpg"))
+    ok, buf = cv2.imencode(".jpg", img)
+    again = cv2.imdecode(buf, cv2.IMREAD_COLOR).astype(np.float64)
+    db = 10 * np.log10(255.0**2 / np.mean((again - img) ** 2))
+    assert ok and abs(db - chip_smoke.FULLHD_CV2_PSNR) <= 1e-3
 
 
 def _assert_video_results_close(got: dict, want: dict):

@@ -745,8 +745,10 @@ def test_tester_folder_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert (np.abs(got["verts"] - ref["verts"]) <= 1e-4 + ulp).all()
         for key in ("orig_cam", "var", "var_global", "betas"):
             np.testing.assert_allclose(got[key], ref[key], atol=2e-3, rtol=2e-3)
-    png = sorted((tmp_path / "cuda").glob("*.png"))[0].read_bytes()
-    assert int.from_bytes(png[16:20], "big") == 512
+    from poco_tpu_torch.runtime.loader import decode_image
+
+    written = sorted((tmp_path / "cuda").glob("*.jpg"))   # each input's own name and format
+    assert len(written) == 3 and decode_image(str(written[0])).shape[1] == 512
 
 
 def copy_to(model, device):
@@ -765,3 +767,48 @@ def test_rasterizer_builds_under_build_and_draws(cuda):
                              np.array([[0, 1, 2]]), np.full((1, 3), 200.0, np.float32),
                              np.ones(1, bool))
     assert (out[..., 0] == 200).sum() > 100 and out[0, 31, 0] == 0
+
+
+def test_soft_raster_on_the_card_matches_the_cpu(cuda):
+    """The soft rasterizer's silhouette, part probabilities and vertex
+    gradient on the card against the CPU (fp32 both, TF32 off), and its
+    refusal to run with TF32 matmuls."""
+    from poco_tpu_torch.ops import soft_raster
+
+    smpl = synthetic_smpl_model(num_verts=6890, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    verts = 0.5 * smpl.v_template[None].repeat(2, 1, 1) + 0.02 * torch.randn(2, 6890, 3,
+                                                                             generator=g)
+    cam = torch.tensor([[0.9, 0.0, 0.0], [1.1, 0.05, -0.1]])
+    out = {}
+    for device in ("cpu", "cuda"):
+        v = verts.detach().to(device).requires_grad_()
+        sil = soft_raster.soft_silhouette(v, cam.to(device))
+        probs = soft_raster.soft_part_probs(v, cam.to(device), smpl.lbs_weights.to(device))
+        (sil.sum() + probs[..., 5].sum()).backward()
+        out[device] = [t.detach().cpu() for t in (sil, probs, v.grad)]
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert (got - want).abs().max() <= 1e-5
+    grad_c, grad = out["cpu"][2], out["cuda"][2]
+    assert (grad - grad_c).norm() <= 1e-4 * grad_c.norm()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            soft_raster.soft_silhouette(verts.cuda(), cam.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_jpeg_encoder_round_trip_on_the_card_host(cuda, tmp_path):
+    """`write_image` to .jpg on the route the host builds (nvJPEG on the
+    card's host): the file decodes to the frame within 35 dB PSNR."""
+    from poco_tpu_torch.runtime.image_write import write_image
+    from poco_tpu_torch.runtime.loader import decode_image
+
+    y, x = np.mgrid[0:240, 0:320] / 40.0
+    frame = np.stack([127 + 100 * np.sin(x), 127 + 100 * np.cos(y), 127 + 60 * np.sin(x + y)],
+                     axis=-1).astype(np.uint8)
+    write_image(str(tmp_path / "x.jpg"), frame)
+    back = decode_image(str(tmp_path / "x.jpg")).astype(np.float64)
+    assert back.shape == frame.shape
+    assert 10 * np.log10(255.0**2 / np.mean((back - frame) ** 2)) >= 35.0

@@ -333,14 +333,50 @@ def test_csv_and_tensorboard_logs(tmp_path):
 
 
 def test_refuses_features_of_later_slices(tmp_path):
-    with pytest.raises(NotImplementedError, match="viz"):
-        _trainer(tmp_path, SAVE_IMAGES=True)
-    with pytest.raises(NotImplementedError, match="soft_raster"):
-        _trainer(tmp_path, USE_SMPL_RENDER_LOSS=True)
+    """Only DATASET.USE_SYNTHETIC_OCCLUSION is refused now: SAVE_IMAGES and
+    the render and part-segmentation losses came with their slice."""
+    _trainer(tmp_path / "a", SAVE_IMAGES=True).close()
+    _trainer(tmp_path / "b", USE_SMPL_RENDER_LOSS=True, USE_SMPL_SEGM_LOSS=True).close()
     h = _hparams(tmp_path)
     h.DATASET.USE_SYNTHETIC_OCCLUSION = True
     with pytest.raises(NotImplementedError, match="occlusion"):
         Trainer(h, synthetic_smpl_model(device="cpu"), lambda e: None, device="cpu")
+
+
+def test_save_images_writes_the_grid_where_jax_writes_it(tmp_path):
+    """Every LOG_SAVE_INTERVAL step's grid at the JAX trainer's path
+    (`<logdir>/images/train_e{epoch}_s{step}.png`, JAX train_viz.
+    save_training_grid), 4 rows of [crop | GT | prediction], 224 px."""
+    import cv2
+
+    from poco_tpu.viz.train_viz import save_training_grid as jax_save
+
+    trainer = _trainer(tmp_path / "run", SAVE_IMAGES=True, LOG_SAVE_INTERVAL=1)
+    trainer.fit(1)
+    trainer.close()
+    names = sorted(os.listdir(tmp_path / "run" / "images"))
+    assert names == ["train_e0_s0.png", "train_e0_s1.png"]
+    grid = cv2.imread(str(tmp_path / "run" / "images" / names[0]))
+    assert grid.shape == (4 * 224, 3 * 224, 3)
+    want = jax_save(grid, str(tmp_path / "jax"), "train_e0_s0")
+    assert os.path.relpath(want, tmp_path / "jax") == os.path.join("images", names[0])
+
+
+def test_profile_dir_traces_the_first_steps(monkeypatch, tmp_path):
+    """POCO_TPU_PROFILE_DIR (the JAX trainer's knob): a Chrome trace of
+    epoch 0's first steps, with every TRAIN_STAGES range, and none for a
+    later epoch."""
+    from poco_tpu_torch.train.step import TRAIN_STAGES
+
+    monkeypatch.setenv("POCO_TPU_PROFILE_DIR", str(tmp_path / "prof"))
+    trainer = _trainer(tmp_path / "run")
+    trainer.fit(2)
+    trainer.close()
+    assert os.listdir(tmp_path / "prof") == ["train_e0_rank0.json"]
+    with open(tmp_path / "prof" / "train_e0_rank0.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert set(TRAIN_STAGES) <= names
 
 
 def test_warm_start_from_a_reference_pt(tmp_path):
@@ -419,17 +455,21 @@ def test_cli_resumes_a_run_in_its_logdir(monkeypatch, tmp_path):
 
 
 def test_cli_refuses_dist_and_make_launcher(monkeypatch, tmp_path, capsys):
-    """--make_launcher is still refused (a later slice). --dist, refused
-    before multi-GPU was ported, now forms a world from torchrun's
+    """--make_launcher writes the grid-search launcher and exits (the
+    launchers are held to JAX's in tests/test_torch_launchers.py). --dist,
+    refused before multi-GPU was ported, now forms a world from torchrun's
     environment (here one gloo process on the CPU), trains in it, and
     leaves no process group behind."""
     import socket
 
     from poco_tpu_torch.cli import train as train_cli
 
+    monkeypatch.chdir(tmp_path)
+    out = train_cli.main(["--cfg", os.path.join(REPO, "configs", "tiny_smoke.yaml"),
+                          "--make_launcher", "bash"])
+    assert out == {"launcher": os.path.join("scripts", "tiny_smoke.sh")}
+    assert "poco_tpu_torch.cli.train" in (tmp_path / "scripts" / "tiny_smoke.sh").read_text()
     monkeypatch.chdir(REPO)
-    with pytest.raises(SystemExit, match="later"):
-        train_cli.main(["--cfg", "configs/tiny_smoke.yaml", "--make_launcher", "bash"])
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
