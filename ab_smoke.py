@@ -12,8 +12,9 @@ directory, with its own `chip_smoke.py` and `poco_tpu_torch/` (its kernels
 built into its own `_build/`): phases 1 (environment), 2 (build) and 4
 (the POCO-CLIFF main path) always, 4b (POCO-PARE) before `train`, then
 the chosen ones in this order: `train` (4f), `serving` (4h), `dist` (4i,
-in a checkout that has it), `demo` (4j, likewise), `losses` (4k-4m, on
-4f's synthetic samples, in a checkout that has them). Every line a run prints is printed with
+in a checkout that has it, and 4n, the model axis, where it has that),
+`demo` (4j, likewise, and 4o), `crop` (4p, in a checkout that has it),
+`losses` (4k-4m, on 4f's synthetic samples, in a checkout that has them). Every line a run prints is printed with
 `[i dir]` before it. Exits 1 if any run failed, after all have run.
 """
 
@@ -24,7 +25,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = ("train", "serving", "dist", "demo", "losses")
+PHASES = ("train", "serving", "dist", "demo", "crop", "losses")
 
 RUN = """
 import sys
@@ -42,6 +43,8 @@ if "dist" in phases:
     cs.phase_dist(ctx, seed, card)
 if "demo" in phases:
     cs.phase_demo(ctx, seed, card)
+if "crop" in phases:
+    cs.phase_crop(seed, card)
 if "losses" in phases:
     data = cs.SyntheticTrainSet(10 * 64, seed + 31, ctx["smpl"].to("cpu"))
     train = {"data": data, "host": cs.collate([data[i] for i in range(64)])}

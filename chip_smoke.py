@@ -12,8 +12,9 @@ Phases, each of which raises (exit code 1) on failure:
   3. kernel check: the skinning kernel (`skinning`, 3xTF32 tensor cores)
      and its fp32-FMA yardstick (`skinning_simt`) against the plain torch
      version on the card, at every batch the main paths launch it with
-     (B = 1, 2, 4, 8, 16, 32, 64, 128 at V=6890; the launch layout depends on B)
-     and a ragged shape; the backward kernel (`skinning_backward`, 3xTF32
+     (B = 1, 2, 4, 8, 16, 32, 64, 128 at V=6890; the launch layout depends on B),
+     a ragged shape and the model axis's vertex shards (B = 64 at V = 3445
+     and 1723, B = 4 at V = 64); the backward kernel (`skinning_backward`, 3xTF32
      tensor cores) and its fp32-FMA yardstick (`skinning_backward_simt`)
      against their plain version at the same shapes (both gradients within
      1e-5 x max |plain| + 1e-7);
@@ -160,6 +161,33 @@ Phases, each of which raises (exit code 1) on failure:
      learning rates), the script run on the card: both runs' logdirs and
      checkpoints (removed after); `cli.eval --make_launcher bash` parsed
      by `bash -n`;
+  4n. the SMPL "model" axis (`parallel/distributed.form_grid`,
+     `parallel/mesh.shard_smpl_params`, the sharded forward of
+     `smpl/lbs.py`), run at the end of 4i: (a) 4i's two gloo ranks as
+     data 1 x model 2, the V=6890 SMPL split 3445 / 3445: `smplcam_head`
+     on 64 rows against each rank's unsharded SMPL (vertices and joints3d
+     within 1e-5 m, joints2d 1e-2 px; the SMPL stage's time both ways,
+     two ranks on one card: correctness, not scaling), then one POCO-CLIFF
+     train step at the config's batch of 64, every row on both ranks,
+     from phase 4's weights, against this process's step on the same rows:
+     the loss terms within rtol 2e-4, the gradient checksum within 1e-5
+     and each top-level module's gradient at 4i's bars, the same on both
+     ranks; `skinning` twice and `skinning_backward` once a step at the
+     shard's shape, their peak memory; (b) four ranks of this script, data
+     2 x model 2, tiny-cliff with a V=128 synthetic SMPL, one step at the
+     global batch of 8 against one process, the same way;
+  4o. the demo's drawing flags and pose tracking, in 4j's tester: folder
+     mode `--draw_keypoints` (every in-frame joint drawn), video mode
+     `--sideview --wireframe` over 8 frames (twice the width, the side
+     view's caption box equal to cv2's, kept in
+     tests/data/torch_caption_cv2.npz: the box exact, at most 0.5% of
+     its pixels differing, by one grey level at most; a fixed-camera wireframe
+     and filled render timed), `--tracking_method pose` over seeded
+     posetrack JSON (a track a person, one inference a track); each run's
+     launches and render ms a frame;
+  4p. `crop_and_resize_mxu` against the gather on the full-HD frame at 8
+     and 128 boxes: the largest difference (within 1e-2 grey levels) and
+     both times;
   5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
      (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
      kernel and, in turns, with the plain skinning in its place (the
@@ -179,11 +207,11 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4l, in
+The yardsticks never launch on the main paths (checked in 4-4o, in
 every rank). The line before the last is the kernels' JSON record
 (`skinning`, `skinning_simt`, `skinning_backward`,
-`skinning_backward_simt`, launches summed over phases 4-4l and the
-ranks of 4i); the last line is
+`skinning_backward_simt`, launches summed over phases 4-4o and the
+ranks of 4i and 4n); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -454,9 +482,11 @@ def cold_ms(fn, sets, calls: int = 40) -> float:
 # steps of 64 (and `skinning_backward` there); phase 4g's tiny_smoke
 # training and validation at 4, its full-width eval at 8 and its
 # full-width fit at 16 (the smoke sets hold 16 samples: no ragged batch);
-# phase 4h's served buckets 1, 8, 32 and 128, and its export's batch of 2
+# phase 4h's served buckets 1, 8, 32 and 128, and its export's batch of 2;
+# phase 4n's vertex shards: 6890 over 2 (the train step and smplcam_head at
+# 64), over 4 (1723, an odd shard) and the 2 x 2 grid's V = 128 over 2 at 4
 SKIN_SHAPES = ((128, 6890), (64, 6890), (32, 6890), (16, 6890), (8, 6890), (4, 6890),
-               (2, 6890), (1, 6890), (3, 1001))
+               (2, 6890), (1, 6890), (3, 1001), (64, 3445), (64, 1723), (4, 64))
 
 
 KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
@@ -554,7 +584,8 @@ def phase_kernel_timing(peaks: Peaks) -> dict:
     return times
 
 
-BACKWARD_SHAPES = ((64, 6890), (128, 6890))   # the training batch, and twice it
+# the training batch, twice it, and the training batch on phase 4n's shard
+BACKWARD_SHAPES = ((64, 6890), (128, 6890), (64, 3445))
 
 
 def backward_bytes(batch: int, num_verts: int) -> int:
@@ -2481,9 +2512,10 @@ def dist_eval(model, seed: int, label: str) -> dict:
 def dist_rank(rank: int, workdir: Path, seed: int) -> int:
     """One of phase 4i's ranks (a subprocess of this script): the fit in a
     world of DIST_WORLD processes on this card, rank 0 saving the fitted
-    weights, then their sharded evaluation. NCCL refuses two ranks on one
-    device, so the ranks talk over gloo, whose collectives the port
-    stages through host memory."""
+    weights, then their sharded evaluation, then phase 4n (a) on the same
+    processes as data 1 x model 2 (`model_axis_rank`). NCCL refuses two
+    ranks on one device, so the ranks talk over gloo, whose collectives
+    the port stages through host memory."""
     from poco_tpu_torch.parallel import distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2495,6 +2527,9 @@ def dist_rank(rank: int, workdir: Path, seed: int) -> int:
         if rank == 0:
             torch.save(trainer.model.state_dict(), workdir / "fitted.pt")
         rec.update(dist_eval(trainer.model, seed, f"rank{rank}"))
+        del trainer
+        torch.cuda.empty_cache()
+        rec["axis"] = model_axis_rank(rank, workdir, seed)   # phase 4n (a)
     finally:
         distributed.shutdown()
     with open(workdir / f"rank{rank}.json", "w") as f:
@@ -2502,15 +2537,16 @@ def dist_rank(rank: int, workdir: Path, seed: int) -> int:
     return 0
 
 
-def run_ranks(workdir: Path, seed: int) -> list[dict]:
-    """Start DIST_WORLD ranks of this script together and wait for all;
-    a rank that fails or outlasts DIST_TIMEOUT fails the phase (the others
-    are killed)."""
+def run_ranks(workdir: Path, seed: int, world: int = DIST_WORLD, flag: str = "--dist-rank",
+              stem: str = "rank") -> list[dict]:
+    """Start `world` ranks of this script together (`flag` r) and wait for
+    all; a rank that fails or outlasts DIST_TIMEOUT fails the phase (the
+    others are killed). Returns each rank's workdir/<stem><r>.json."""
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
-         "--dist-rank", str(r), "--dist-dir", str(workdir)],
+         flag, str(r), "--dist-dir", str(workdir)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    ) for r in range(DIST_WORLD)]
+    ) for r in range(world)]
     outs = []
     try:
         for p in procs:
@@ -2521,10 +2557,10 @@ def run_ranks(workdir: Path, seed: int) -> list[dict]:
                 p.kill()
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"dist rank {r} failed (exit {p.returncode}):\n{out[-4000:]}")
+        check(p.returncode == 0, f"{stem} {r} failed (exit {p.returncode}):\n{out[-4000:]}")
     results = []
-    for r in range(DIST_WORLD):
-        with open(workdir / f"rank{r}.json") as f:
+    for r in range(world):
+        with open(workdir / f"{stem}{r}.json") as f:
             results.append(json.load(f))
     return results
 
@@ -2534,33 +2570,35 @@ def rel_diffs(a, b) -> list[float]:
     return (np.abs(a - b) / np.abs(b)).tolist()
 
 
-def dist_gradient_faults(grads: dict, ranks: list[str]) -> list[str]:
+def dist_gradient_faults(grads: dict, ranks: list[str], label: str = "step-1") -> list[str]:
     """The first step's gradients as the optimizer takes them: the same
     on every rank (every rank applies one update), and each top-level
     module's within relative L2 DIST_GRAD_RTOL (else GRAD_GROUP_RTOL, as
-    phase 4f) of one process's. A rank that skipped the sum over
-    processes would hold its own rows' share: off by tens of percent
-    (PERF.md, section 6, the multi-GPU findings). Prints each module's
-    distance, with the second one-process fit's beside it (the card's own
-    run-to-run difference); returns what failed."""
+    phase 4f) of one process's (`grads["one"]`). A rank that skipped the
+    sum over processes would hold its own rows' share: off by tens of
+    percent (PERF.md, section 6, the multi-GPU findings). Prints each
+    module's distance, with a second one-process fit's beside it where
+    `grads` has one ("again": the card's own run-to-run difference);
+    returns what failed."""
     one, faults = grads["one"], []
-    if any(grads[label].keys() != one.keys() for label in ranks):
-        return ["the ranks' gradients are of other modules than one process's"]
-    for label in ranks[1:]:
-        diff = max(float((grads[label][k] - grads[ranks[0]][k]).abs().max()) for k in one)
+    if any(grads[r].keys() != one.keys() for r in ranks):
+        return [f"{label}: the ranks' gradients are of other modules than one process's"]
+    for r in ranks[1:]:
+        diff = max(float((grads[r][k] - grads[ranks[0]][k]).abs().max()) for k in one)
         if diff != 0.0:
-            faults.append(f"{label}'s step-1 gradients differ from {ranks[0]}'s by up to {diff}")
+            faults.append(f"{label}: {r}'s gradients differ from {ranks[0]}'s by up to {diff}")
 
     def rel(a, b):
         return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
     for k in one:
-        pair, again = rel(grads[ranks[0]][k], one[k]), rel(grads["again"][k], one[k])
-        bar = DIST_GRAD_RTOL.get(k, GRAD_GROUP_RTOL)
-        print(f"step-1 gradient {k} ({one[k].numel()} values): {len(ranks)} ranks vs one process "
-              f"relative L2 {pair:.3e} (tolerance {bar}); one process again {again:.3e}")
+        pair, bar = rel(grads[ranks[0]][k], one[k]), DIST_GRAD_RTOL.get(k, GRAD_GROUP_RTOL)
+        again = (f"; one process again {rel(grads['again'][k], one[k]):.3e}"
+                 if "again" in grads else "")
+        print(f"{label} gradient {k} ({one[k].numel()} values): {len(ranks)} ranks vs one "
+              f"process relative L2 {pair:.3e} (tolerance {bar}){again}")
         if pair > bar:
-            faults.append(f"the step-1 {k} gradient is {pair:.3e} from one process's")
+            faults.append(f"{label}: the {k} gradient is {pair:.3e} from one process's")
     return faults
 
 
@@ -2604,6 +2642,7 @@ def phase_dist(ctx: dict, seed: int, card: str) -> dict[str, Counter]:
         one.update(dist_eval(trainer.model, seed, "one"))
         del trainer
         torch.cuda.empty_cache()
+        axis_counts = phase_model_axis(ranks, tmp, seed, card)
 
     fit_want = {"skinning": TRAIN_LAUNCHES[0] * DIST_STEPS,
                 "skinning_backward": TRAIN_LAUNCHES[1] * DIST_STEPS}
@@ -2673,7 +2712,272 @@ def phase_dist(ctx: dict, seed: int, card: str) -> dict[str, Counter]:
           f"included; the ranks {pair_s:.3f} s (start-up and evaluation included), one "
           f"process's fit {one_s:.3f} s; on {card}. Two ranks on one card show correctness, "
           f"not scaling.")
-    print(f"phase 4i: {time.perf_counter() - phase_start:.3f} s")
+    print(f"phase 4i: {time.perf_counter() - phase_start:.3f} s (4n's included)")
+    counts.update(axis_counts)
+    return counts
+
+
+# -- the SMPL model axis (phase 4n) ---------------------------------------------
+
+AXIS_MODEL = 2            # (a) the two 4i ranks as data 1 x model 2
+AXIS_ROWS = 64            # (a) the config's batch, every row on both ranks
+AXIS_METERS_TOL = 1e-5    # smplcam_head vertices / joints3d, sharded vs one process, m
+AXIS_PX_TOL = 1e-2        # its joints2d, px (1e-5 m at the synthetic cameras' depths)
+GRID_WORLD, GRID_MODEL = 4, 2   # (b) data 2 x model 2, tiny-cliff, as JAX's dry run
+GRID_ROWS, GRID_VERTS = 8, 128  # (b) 2 rows a rank (the dry run's 2 x devices), V = 128
+
+
+def axis_head_inputs(rows: int, seed: int) -> dict:
+    """Seeded `smplcam_head` inputs on the card: rotations within 0.4 rad,
+    shapes, crop cameras and full-image boxes of 720x1280 frames."""
+    rng = np.random.RandomState(seed)
+    aa = torch.from_numpy((0.4 * rng.randn(rows * 24, 3)).astype(np.float32))
+    img_h, img_w = torch.full((rows,), 720.0), torch.full((rows,), 1280.0)
+    x = {
+        "rotmat": axis_angle_to_rotmat(aa).reshape(rows, 24, 3, 3),
+        "shape": torch.from_numpy(rng.randn(rows, 10).astype(np.float32)),
+        "cam": torch.from_numpy(np.stack([rng.uniform(0.6, 1.2, rows), rng.uniform(
+            -0.2, 0.2, rows), rng.uniform(-0.2, 0.2, rows)], 1).astype(np.float32)),
+        "focal_length": torch.sqrt(img_h ** 2 + img_w ** 2),
+        "bbox_scale": torch.from_numpy(rng.uniform(1.5, 3.0, rows).astype(np.float32)),
+        "bbox_center": torch.from_numpy(np.stack([rng.uniform(300, 980, rows), rng.uniform(
+            200, 520, rows)], 1).astype(np.float32)),
+        "img_w": img_w, "img_h": img_h,
+    }
+    return {k: v.cuda() for k, v in x.items()}
+
+
+def axis_step(hparams, smpl, weights, host: dict, label: str) -> tuple[dict, dict]:
+    """One `Trainer.train_step` of `host` (a host batch) from `weights` (a
+    state_dict file, or None for the seeded model) with `smpl` (sharded or
+    not): the loss terms, the launches, the weights' checksum after the
+    step and the peak memory; and the gradients flat by top-level module."""
+    from poco_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(hparams, smpl, train_dataset_fn=None, device="cuda")
+    if weights is not None:
+        trainer.model.load_state_dict(torch.load(weights, map_location="cuda"))
+    batch = trainer._device_batch(host)
+    reset_counts()
+    metrics = trainer.train_step(batch, trainer.smpl)
+    torch.cuda.synchronize()
+    counts = read_counts(label)
+    groups = {}
+    for name, p in trainer.model.named_parameters():
+        if p.grad is not None:
+            groups.setdefault(name.split(".")[0], []).append(p.grad.reshape(-1))
+    grads = {k: torch.cat(v).cpu() for k, v in groups.items()}
+    rec = {"losses": {k: float(v) for k, v in metrics.items() if k.startswith("loss/")},
+           "counts": dict(counts),
+           "grad_sum": sum(float(g.double().abs().sum()) for g in grads.values()),
+           "param_sum": sum(float(p.detach().double().abs().sum())
+                            for p in trainer.model.parameters()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    trainer.close()
+    del trainer, batch, metrics
+    torch.cuda.empty_cache()
+    return rec, grads
+
+
+def smpl_stage_ms(smpl, x: dict, reps: int = 20) -> list[float]:
+    """Host-clock ms of `smplcam_head` (the SMPL stage of a forward),
+    synchronized, after 3 calls of warm-up."""
+    from poco_tpu_torch.smpl.model import smplcam_head
+
+    ts = []
+    with torch.no_grad():
+        for i in range(reps + 3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            smplcam_head(smpl, **x)
+            torch.cuda.synchronize()
+            if i >= 3:
+                ts.append(1e3 * (time.perf_counter() - start))
+    return ts
+
+
+def model_axis_rank(rank: int, workdir: Path, seed: int) -> dict:
+    """Phase 4n (a) in one of the two 4i ranks, after 4i's work: the grid
+    re-formed as data 1 x model AXIS_MODEL, the V=6890 SMPL sharded by
+    vertex. `smplcam_head` on AXIS_ROWS seeded rows, sharded against this
+    process's own unsharded SMPL (errors and the SMPL stage's time both
+    ways), then one POCO-CLIFF train step from phase 4's weights on the
+    first AXIS_ROWS rows of a synthetic set, all on both ranks (its
+    gradients to workdir/axis_grad_rank<r>.pt)."""
+    from poco_tpu_torch.parallel import distributed
+    from poco_tpu_torch.parallel.mesh import shard_smpl_params
+    from poco_tpu_torch.smpl.model import smplcam_head
+
+    distributed.form_grid(AXIS_MODEL)
+    smpl = synthetic_smpl_model(num_verts=6890, seed=seed, device="cuda")
+    sharded = shard_smpl_params(smpl)
+    x = axis_head_inputs(AXIS_ROWS, seed + 51)
+    reset_counts()
+    with torch.no_grad():
+        got = smplcam_head(sharded, **x)
+    torch.cuda.synchronize()
+    head_counts = read_counts(f"model axis head rank{rank}")
+    with torch.no_grad():
+        want = smplcam_head(smpl, **x)
+    errs = {k: float((getattr(got, k) - getattr(want, k)).abs().max())
+            for k in ("vertices", "joints3d", "joints2d", "cam_t", "fullimg_cam_t")}
+    rec = {"shard": [sharded.shard.lo, sharded.shard.hi], "head_err": errs,
+           "head_counts": dict(head_counts),
+           "stage_ms": {"sharded": smpl_stage_ms(sharded, x), "whole": smpl_stage_ms(smpl, x)}}
+    data = SyntheticTrainSet(AXIS_ROWS, seed + 53, smpl.to("cpu"))
+    step, grads = axis_step(train_hparams(str(workdir / f"axis_rank{rank}")), sharded,
+                            workdir / "weights.pt", data.get_batch(range(AXIS_ROWS)),
+                            f"model axis step rank{rank}")
+    torch.save(grads, workdir / f"axis_grad_rank{rank}.pt")
+    rec["step"] = step
+    return rec
+
+
+def grid_rank(rank: int, workdir: Path, seed: int) -> int:
+    """One of phase 4n (b)'s GRID_WORLD ranks (a subprocess of this
+    script): data 2 x model GRID_MODEL over gloo on this card, tiny-cliff
+    (configs/tiny_smoke.yaml, its seeded weights) with a V=GRID_VERTS
+    synthetic SMPL sharded over the model group, one train step on this
+    data index's rows of a global batch of GRID_ROWS."""
+    from poco_tpu_torch.parallel import distributed
+    from poco_tpu_torch.parallel.mesh import shard_smpl_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_initialize(coordinator=f"file://{workdir / 'grid_init'}",
+                                 num_processes=GRID_WORLD, process_id=rank, backend="gloo")
+    try:
+        distributed.form_grid(GRID_MODEL)
+        smpl = synthetic_smpl_model(num_verts=GRID_VERTS, seed=seed, device="cuda")
+        data = SyntheticTrainSet(GRID_ROWS, seed + 57, smpl.to("cpu"))
+        lo, hi = distributed.local_shard_bounds(GRID_ROWS)
+        rec, grads = axis_step(train_hparams(str(workdir / f"grid_rank{rank}"),
+                                             "configs/tiny_smoke.yaml"),
+                               shard_smpl_params(smpl), None,
+                               data.get_batch(range(GRID_ROWS), keep=slice(lo, hi)),
+                               f"grid rank{rank}")
+        rec.update(data_index=distributed.data_index(), model_index=distributed.model_index())
+    finally:
+        distributed.shutdown()
+    torch.save(grads, workdir / f"grid_grad_rank{rank}.pt")
+    with open(workdir / f"grid_rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def step_faults(label: str, ranks: list[dict], one: dict) -> list[str]:
+    """Loss terms within DIST_LOSS_RTOL and the gradient checksum within
+    DIST_PARAM_RTOL of one process's (printed)."""
+    faults = []
+    rel = {k: abs(ranks[0]["losses"][k] - v) / max(abs(v), 1e-30)
+           for k, v in one["losses"].items()}
+    grad_rel = abs(ranks[0]["grad_sum"] - one["grad_sum"]) / one["grad_sum"]
+    print(f"{label}: total loss {ranks[0]['losses']['loss/total_loss']:.6f} against one "
+          f"process's {one['losses']['loss/total_loss']:.6f}; the loss terms' largest relative "
+          f"difference {max(rel.values()):.3e} (tolerance {DIST_LOSS_RTOL}); gradient checksum "
+          f"(sum |g|) {ranks[0]['grad_sum']:.6e} against {one['grad_sum']:.6e}, relative "
+          f"{grad_rel:.3e} (tolerance {DIST_PARAM_RTOL})")
+    if any(res["losses"] != ranks[0]["losses"] for res in ranks):
+        faults.append(f"{label}: the ranks log other loss terms")
+    if not all(math.isfinite(v) for v in ranks[0]["losses"].values()):
+        faults.append(f"{label}: a loss term is not finite")
+    if max(rel.values()) > DIST_LOSS_RTOL:
+        faults.append(f"{label}: the loss terms differ from one process's")
+    if grad_rel > DIST_PARAM_RTOL:
+        faults.append(f"{label}: the gradient checksum differs from one process's")
+    return faults
+
+
+def phase_model_axis(ranks: list[dict], workdir: Path, seed: int, card: str) -> dict[str, Counter]:
+    """Phase 4n: the SMPL "model" axis. (a) The two ranks of phase 4i,
+    re-formed as data 1 x model AXIS_MODEL after 4i's work (their
+    results in `ranks[r]["axis"]`): `smplcam_head` sharded against one
+    process within AXIS_METERS_TOL m (joints2d AXIS_PX_TOL px), and one
+    POCO-CLIFF train step at batch AXIS_ROWS, every row on both ranks,
+    against this process's step on the same rows and weights: the loss
+    terms, the gradient checksum and each module's gradient at phase 4i's
+    bars; `skinning` (2) and `skinning_backward` (1) launch at the shard's
+    shape (B = 64, V = 3445). Two ranks sharing a card over gloo (staged
+    through host memory) show correctness, not scaling: the SMPL stage's
+    time is printed both ways. (b) GRID_WORLD ranks, data 2 x model
+    GRID_MODEL, tiny-cliff, one step at the global batch GRID_ROWS against
+    one process. Returns the launches of every rank, summed."""
+    import tempfile
+
+    print(f"== 4n. the SMPL model axis: (a) the two 4i ranks as data 1 x model {AXIS_MODEL}, "
+          f"POCO-CLIFF at full width; (b) {GRID_WORLD} ranks, data 2 x model {GRID_MODEL}, "
+          "tiny-cliff")
+    phase_start = time.perf_counter()
+    axis = [res["axis"] for res in ranks]
+    smpl = synthetic_smpl_model(num_verts=6890, seed=seed, device="cuda")
+    faults = []
+    for r, res in enumerate(axis):
+        err = res["head_err"]
+        print(f"4n (a) rank {r}: vertices [{res['shard'][0]}, {res['shard'][1]}) of 6890; "
+              f"smplcam_head on {AXIS_ROWS} rows sharded vs one process, largest difference "
+              f"{err} (vertices and joints3d m, tolerance {AXIS_METERS_TOL}; joints2d px, "
+              f"{AXIS_PX_TOL}); launches {res['head_counts']}; SMPL stage "
+              f"(smplcam_head, B={AXIS_ROWS}) sharded median "
+              f"{statistics.median(res['stage_ms']['sharded']):.3f} ms, one process "
+              f"{statistics.median(res['stage_ms']['whole']):.3f} ms on {card} (two ranks "
+              "on one card, gloo through host memory: correctness, not scaling)")
+        if max(err["vertices"], err["joints3d"]) > AXIS_METERS_TOL or \
+                err["joints2d"] > AXIS_PX_TOL:
+            faults.append(f"rank {r}: smplcam_head sharded differs from one process: {err}")
+    shard_verts = axis[0]["shard"][1] - axis[0]["shard"][0]
+    data = SyntheticTrainSet(AXIS_ROWS, seed + 53, smpl.to("cpu"))
+    one, one_grads = axis_step(train_hparams(str(workdir / "axis_one")), smpl,
+                               workdir / "weights.pt", data.get_batch(range(AXIS_ROWS)),
+                               "model axis step one process")
+    steps = [res["step"] for res in axis]
+    for r, step in enumerate(steps):
+        print(f"4n (a) rank {r}: train step at batch {AXIS_ROWS} (every row), launches "
+              f"{step['counts']} at B={AXIS_ROWS}, V={shard_verts}; peak memory "
+              f"{step['peak_gib']:.3f} GiB (one process: {one['peak_gib']:.3f} GiB)")
+        if step["counts"].get("skinning") != TRAIN_LAUNCHES[0] or \
+                step["counts"].get("skinning_backward") != TRAIN_LAUNCHES[1]:
+            faults.append(f"rank {r}: the step launched {step['counts']}")
+        if axis[r]["head_counts"].get("skinning") != 1:
+            faults.append(f"rank {r}: smplcam_head launched {axis[r]['head_counts']}")
+    faults += step_faults("4n (a)", steps, one)
+    grads = {f"rank{r}": torch.load(workdir / f"axis_grad_rank{r}.pt") for r in range(len(axis))}
+    faults += dist_gradient_faults(grads | {"one": one_grads}, sorted(grads), "4n (a)")
+    counts = {"axis_pair": Counter()}
+    for res in axis:
+        counts["axis_pair"].update(res["head_counts"])
+        counts["axis_pair"].update(res["step"]["counts"])
+    counts["axis_one"] = Counter(one["counts"])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        grid = run_ranks(tmp, seed, GRID_WORLD, "--grid-rank", "grid_rank")
+        grid_s = time.perf_counter() - start
+        small = synthetic_smpl_model(num_verts=GRID_VERTS, seed=seed, device="cuda")
+        data = SyntheticTrainSet(GRID_ROWS, seed + 57, small.to("cpu"))
+        one, one_grads = axis_step(train_hparams(str(tmp / "grid_one"), "configs/tiny_smoke.yaml"),
+                                   small, None, data.get_batch(range(GRID_ROWS)),
+                                   "grid one process")
+        grads = {f"rank{r}": torch.load(tmp / f"grid_grad_rank{r}.pt") for r in range(GRID_WORLD)}
+    places = [(res["data_index"], res["model_index"]) for res in grid]
+    print(f"4n (b) {GRID_WORLD} ranks (data, model) {places}: launches "
+          f"{[res['counts'] for res in grid]} at B={GRID_ROWS // (GRID_WORLD // GRID_MODEL)}, "
+          f"V={GRID_VERTS // GRID_MODEL}; {grid_s:.3f} s with start-up on {card}")
+    if places != [(r // GRID_MODEL, r % GRID_MODEL) for r in range(GRID_WORLD)]:
+        faults.append(f"4n (b): the grid's places are {places}")
+    for r, res in enumerate(grid):
+        if res["counts"].get("skinning") != TRAIN_LAUNCHES[0] or \
+                res["counts"].get("skinning_backward") != TRAIN_LAUNCHES[1]:
+            faults.append(f"4n (b) rank {r}: the step launched {res['counts']}")
+    faults += step_faults("4n (b)", grid, one)
+    faults += dist_gradient_faults(grads | {"one": one_grads}, sorted(grads), "4n (b)")
+    counts["grid"] = Counter()
+    for res in grid:
+        counts["grid"].update(res["counts"])
+    counts["grid_one"] = Counter(one["counts"])
+    check(not faults, "model axis: " + "; ".join(faults))
+    print(f"phase 4n: {time.perf_counter() - phase_start:.3f} s")
     return counts
 
 
@@ -3016,6 +3320,7 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     print(f"stream: the pipelined and the sequential runs' {STREAM_FRAMES} frames "
           f"{'are' if same else 'are NOT'} bit-identical")
     check(same, "the pipelined stream differs from the sequential one")
+    counts.update(demo_drawing(tmp, tester, base, card))   # phase 4o
 
     # the kernel at the batches the demo launched it with, beside phase 3's
     worst = 0.0
@@ -3029,6 +3334,215 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     tmp_dir.cleanup()
     print(f"phase 4j: {time.perf_counter() - phase_start:.3f} s")
     return counts, worst
+
+
+DRAW_FRAMES = 8           # frames of phase 4o's video runs (the first of DEMO_VIDEO_DIR)
+POSE_PEOPLE = 2           # seeded keypoint tracks of 4o's pose-tracking run
+CAPTION = "Other View"
+CAPTION_REFERENCE = REPO / "tests" / "data" / "torch_caption_cv2.npz"   # cv2's, 540 and 1080
+CAPTION_SHARE = 0.005     # at most this share of the caption box's pixels differ from cv2's,
+CAPTION_LEVELS = 1        # none by more than this many grey levels
+
+
+def write_posetrack(folder: Path, frames: int, h: int, w: int, seed: int) -> None:
+    """OpenPose/STAF posetrack JSON, one file a frame: POSE_PEOPLE people
+    (ids 0, 1, ...), 21 joints each, drifting about two places in the
+    frame, confidences in [0.5, 1]."""
+    rng = np.random.RandomState(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    base = [rng.uniform([0.2 * w, 0.2 * h], [0.8 * w, 0.8 * h], (21, 2))
+            for _ in range(POSE_PEOPLE)]
+    for t in range(frames):
+        people = []
+        for pid, joints in enumerate(base):
+            xy = joints + rng.uniform(-4, 4, joints.shape)
+            kp = np.concatenate([xy, rng.uniform(0.5, 1.0, (21, 1))], 1)
+            people.append({"person_id": [pid], "pose_keypoints_2d": kp.ravel().tolist()})
+        with open(folder / f"frame_{t:012d}_keypoints.json", "w") as f:
+            json.dump({"version": 1.3, "people": people}, f)
+
+
+def demo_drawing(tmp: Path, tester, base: list[str], card: str) -> dict[str, Counter]:
+    """Phase 4o: the demo's drawing flags and pose tracking with one
+    POCO-CLIFF tester on the card. (i) Folder mode with `--draw_keypoints`
+    (and `--wireframe`, which the folder mode takes and does not use, as
+    demo.py) over the full-HD frame and 3 smoke JPEGs: every projected
+    joint in the frame is the keypoint colour in the frame handed to the
+    writer; (ii) video mode with `--sideview --wireframe` over the first
+    DRAW_FRAMES frames of DEMO_VIDEO_DIR: frames twice the width, the
+    side view's caption equal to cv2's (CAPTION_REFERENCE) within
+    CAPTION_SHARE and CAPTION_LEVELS, its box exactly; the wireframe of a
+    fixed in-frame camera changes the frame; (iii) video mode with
+    `--tracking_method pose` over the same frames and seeded posetrack
+    JSON: a track a person over every frame, one inference a track. Each
+    run's launches, and its render time a frame."""
+    from poco_tpu_torch.demo import tester as tester_module
+
+    print("== 4o. the demo's drawing flags and pose tracking: --draw_keypoints, video-mode "
+          "--sideview --wireframe, --tracking_method pose (cli.demo, POCO-CLIFF at full width)")
+    phase_start = time.perf_counter()
+    # the frames as the tester hands them to its writers (the card's host
+    # decodes JPEG only, and the video mode writes PNG)
+    written, write_image, write_png = {}, tester_module.write_image, tester_module.write_png
+
+    def keeping(write):
+        def keep(path, frame):
+            written[Path(path).name] = frame.copy()
+            write(path, frame)
+        return keep
+
+    tester_module.write_image = keeping(write_image)
+    tester_module.write_png = keeping(write_png)
+    try:
+        counts = drawn_runs(tmp, tester, base, written, card)
+    finally:
+        tester_module.write_image, tester_module.write_png = write_image, write_png
+    print(f"phase 4o: {time.perf_counter() - phase_start:.3f} s")
+    return counts
+
+
+def drawn_runs(tmp: Path, tester, base: list[str], written: dict, card: str
+               ) -> dict[str, Counter]:
+    """Phase 4o's three runs (see `demo_drawing`); `written` collects the
+    frames the tester writes, by file name."""
+    import shutil
+
+    from poco_tpu_torch.viz.text import get_text_size
+
+    counts = {}
+    folder = tmp / "draw_images"
+    folder.mkdir()
+    for p in [FULLHD_JPEG, *sorted(SMOKE_DIR.glob("*.jpg"))[:3]]:
+        shutil.copy(p, folder)
+    args = cli_demo.parse_args(base + ["--image_folder", str(folder), "--output_folder",
+                                       str(tmp / "draw_out"), "--draw_keypoints", "--wireframe"])
+    cli_demo.refuse_unported(args)
+    tester.stage_seconds.clear()
+    reset_counts()
+    results = cli_demo.run_folder(args, tester)
+    counts["demo_keypoints"] = read_counts("demo keypoints")
+    names = [Path(p).name for p in images_in_folder(str(folder))]
+    marked = total = 0
+    for name, res in zip(names, results):
+        frame = written[name]
+        h, w = frame.shape[:2]
+        for person in np.atleast_3d(res["smpl_joints2d"]):
+            for x, y in np.trunc(person[:, :2]).astype(int):
+                if 0 <= x < w and 0 <= y < h:
+                    total += 1
+                    marked += bool((frame[y, x] == (0, 255, 0)).all())
+    print(f"4o (i) folder --draw_keypoints over {len(names)} images: {marked} of {total} "
+          f"in-frame joints drawn in the keypoint colour; launches "
+          f"{dict(counts['demo_keypoints'])} (expected skinning {2 * len(names)}); "
+          f"{stage_split(tester, len(names), 'frame')} on {card}")
+    check(total > 0 and marked == total, "--draw_keypoints: joints not drawn")
+    check(counts["demo_keypoints"]["skinning"] == 2 * len(names), "keypoints launches")
+
+    video = tmp / "draw_video"
+    video.mkdir()
+    frames = sorted(DEMO_VIDEO_DIR.glob("*.jpg"))[:DRAW_FRAMES]
+    for p in frames:
+        shutil.copy(p, video)
+    h, w = image_loader.image_size(str(frames[0]))
+    args = cli_demo.parse_args(base + ["--mode", "video", "--image_folder", str(video),
+                                       "--output_folder", str(tmp / "side_out"), "--sideview",
+                                       "--wireframe"])
+    cli_demo.refuse_unported(args)
+    tester.stage_seconds.clear()
+    reset_counts()
+    side = cli_demo.run_video(args, tester)
+    counts["demo_sideview"] = read_counts("demo sideview")
+    rendered = sorted((tmp / "side_out" / "rendered").glob("*.png"))
+    out = written[rendered[0].name]
+    tw, th = get_text_size(CAPTION, h * 0.0016, max(int(h * 0.005), 1))
+    off, x0, y0 = int(h * 0.01), int(w * 0.02), int(h * 0.06)
+    reference = np.load(CAPTION_REFERENCE)
+    ref_box, ref = reference[f"box_{h}"], reference[f"caption_{h}"]
+    box = out[y0 - th - off:y0 + off + 1, w + x0:w + x0 + tw + off + 1]
+    box_equal = [x0, y0 - th - off, x0 + tw + off, y0 + off] == ref_box.tolist()
+    diff = np.abs(box.astype(int) - ref).max(-1) if box.shape == ref.shape else None
+    lengths = [len(r["frame_ids"]) for r in side.values()]
+    expected = math.ceil(DRAW_FRAMES / 8) + sum(math.ceil(n / args.batch_size) for n in lengths)
+    print(f"4o (ii) video --sideview --wireframe over {DRAW_FRAMES} frames: {len(rendered)} "
+          f"frames of {out.shape[1]}x{out.shape[0]}; the caption's box {box.shape[1]}x"
+          f"{box.shape[0]} {'equals' if box_equal else 'differs from'} cv2's, "
+          f"{'-' if diff is None else int((diff > 0).sum())} of its pixels differ from cv2's "
+          f"(at most {'-' if diff is None else int(diff.max())} levels; bar "
+          f"{CAPTION_SHARE} of them, {CAPTION_LEVELS} level); launches "
+          f"{dict(counts['demo_sideview'])} (expected skinning {expected}); "
+          f"{stage_split(tester, DRAW_FRAMES, 'frame')} on {card}")
+    check(len(rendered) == DRAW_FRAMES and out.shape == (h, 2 * w, 3), "sideview frames")
+    check(box_equal and diff is not None and (diff > 0).mean() <= CAPTION_SHARE
+          and diff.max() <= CAPTION_LEVELS, "the side view's caption is not cv2's")
+    check(counts["demo_sideview"]["skinning"] == expected, "sideview launches")
+    res = next(iter(side.values()))
+    img = image_loader.read_image_rgb(str(frames[int(res["frame_ids"][0])]))
+    cam = fixed_camera(res["verts"][0], h, w)
+    for wire in (False, True):
+        start = time.perf_counter()
+        drawn = tester.renderer.render(img, res["verts"][0], cam, wireframe=wire)
+        took = time.perf_counter() - start
+        share = float((np.abs(drawn.astype(int) - img).max(axis=2) > 0).mean())
+        print(f"4o (ii) {'wireframe' if wire else 'filled'} render of a fixed in-frame camera "
+              f"on a {w}x{h} frame: {1e3 * took:.3f} ms, {share:.4f} of the frame changed")
+        check(share >= OVERLAY_SHARE / 4, "the fixed-camera render drew nothing")
+
+    write_posetrack(tmp / "pose_out" / "posetrack", DRAW_FRAMES, h, w, seed=7)
+    args = cli_demo.parse_args(base + ["--mode", "video", "--image_folder", str(video),
+                                       "--output_folder", str(tmp / "pose_out"),
+                                       "--tracking_method", "pose"])
+    cli_demo.refuse_unported(args)
+    tester.stage_seconds.clear()
+    reset_counts()
+    tracks = cli_demo.run_video(args, tester)
+    counts["demo_pose"] = read_counts("demo pose")
+    lengths = {pid: len(r["frame_ids"]) for pid, r in tracks.items()}
+    rendered = sorted((tmp / "pose_out" / "rendered").glob("*.png"))
+    expected = sum(math.ceil(n / args.batch_size) for n in lengths.values())
+    print(f"4o (iii) --tracking_method pose over {DRAW_FRAMES} frames: tracks {lengths}; "
+          f"launches {dict(counts['demo_pose'])} (expected skinning {expected}: no detector, "
+          f"one chunk a track); {len(rendered)} frames rendered; "
+          f"{stage_split(tester, DRAW_FRAMES, 'frame')} on {card}")
+    check(sorted(lengths) == list(range(POSE_PEOPLE))
+          and all(n == DRAW_FRAMES for n in lengths.values()), "pose tracks")
+    check(all(np.isfinite(r["verts"]).all() for r in tracks.values()), "pose verts not finite")
+    check(counts["demo_pose"]["skinning"] == expected and len(rendered) == DRAW_FRAMES,
+          "pose launches / frames")
+    return counts
+
+
+CROP_BOXES = (8, 128)     # phase 4p: the demo's boxes of a frame, and a large batch
+MXU_CROP_TOL = 1e-2       # phase 4p: matmul crop vs gather, in grey levels (JAX's own bar,
+                          # tests/test_preprocess.py; measured 3.4e-3 on the card)
+
+
+def phase_crop(seed: int, card: str) -> None:
+    """Phase 4p: `crop_and_resize_mxu` (two fp32 products) against the
+    gather of `crop_and_resize` on the full-HD frame (on the card, uint8)
+    at the demo's crop size: the largest difference in grey levels, within
+    MXU_CROP_TOL, JAX's own bar between its two crops (the two place a
+    sample from fp32 coordinates up to 1920 px computed in another order:
+    ~1e-5 px, times a pixel step of up to 255 levels), and both times
+    (CUDA events)."""
+    from poco_tpu_torch.ops.preprocess import crop_and_resize, crop_and_resize_mxu
+
+    print("== 4p. the matmul crop against the gather, 224 px crops of the full-HD frame")
+    img = torch.from_numpy(image_loader.read_image_rgb(str(FULLHD_JPEG))).cuda()
+    h, w = img.shape[:2]
+    rng = np.random.RandomState(seed + 61)
+    for boxes in CROP_BOXES:
+        centers, scales = random_boxes(rng, boxes, h, w)
+        c = torch.from_numpy(centers).cuda()
+        s = torch.from_numpy(scales * 200.0).cuda()
+        gather = crop_and_resize(img, c, s)
+        mxu = crop_and_resize_mxu(img, c, s)
+        diff = float((gather - mxu).abs().max())
+        gather_ms = cuda_ms(lambda: crop_and_resize(img, c, s), iters=20)
+        mxu_ms = cuda_ms(lambda: crop_and_resize_mxu(img, c, s), iters=20)
+        print(f"crop {boxes} boxes of {w}x{h}: largest difference {diff:.3e} grey levels "
+              f"(tolerance {MXU_CROP_TOL}); gather {gather_ms:.4f} ms, matmul {mxu_ms:.4f} ms a "
+              f"call on {card}")
+        check(mxu.shape == gather.shape and diff <= MXU_CROP_TOL, "the matmul crop differs")
 
 
 def timed_requests(run, reps: int) -> list[float]:
@@ -3233,12 +3747,15 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--grid-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     if args.dist_rank is not None:  # one of phase 4i's ranks
         return dist_rank(args.dist_rank, Path(args.dist_dir), args.seed)
+    if args.grid_rank is not None:  # one of phase 4n (b)'s ranks
+        return grid_rank(args.grid_rank, Path(args.dist_dir), args.seed)
     card, peaks = phase_environment()
     phase_build()
     errs = phase_kernel_check()
@@ -3258,6 +3775,7 @@ def main() -> int:
     demo_counts, demo_err = phase_demo(ctx, args.seed, card)
     paths.update(demo_counts)
     errs["v2"] = max(errs["v2"], demo_err)
+    phase_crop(args.seed, card)
     paths.update(phase_render_losses(ctx, pare, train, card))
     paths["train_images"] = phase_train_images(ctx, train, card)
     phase_launchers(card)

@@ -31,6 +31,7 @@ import urllib.request
 
 import numpy as np
 import torch
+from ..device import default_device
 
 
 def _make_payload(n_crops: int, rng: np.random.RandomState) -> bytes:
@@ -130,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--combos", default="1x1,8x1,64x1,1x16,8x16,64x16",
                     help="comma list of <clients>x<crops_per_request>")
     ap.add_argument("--requests-per-client", type=int, default=8)
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default=default_device(),
+                    help="cuda or cpu (default: $POCO_TPU_PLATFORM, else cuda)")
     return ap
 
 

@@ -3,9 +3,10 @@ mesh overlays (the port's counterpart of the repo's `demo.py`).
 
     python -m poco_tpu_torch.cli.demo --mode folder --image_folder DIR \\
         [--output_folder out/demo] [--ckpt X.pt] [--detector refine|yolo|...] \\
-        [--sideview] [--save_obj] [--device cuda|cpu]
+        [--sideview] [--save_obj] [--draw_keypoints] [--device cuda|cpu]
     python -m poco_tpu_torch.cli.demo --mode video (--vid_file in.mp4 | \\
-        --image_folder FRAMES_DIR) [--smooth] [--device cuda|cpu]
+        --image_folder FRAMES_DIR) [--smooth] [--sideview] [--wireframe] \\
+        [--tracking_method pose [--staf_dir STAF]] [--device cuda|cpu]
     python -m poco_tpu_torch.cli.demo --mode directory --image_folder PARENT \\
         [--dir_chunk i --dir_chunk_size n]
     python -m poco_tpu_torch.cli.demo --mode webcam --webcam_source FRAMES_DIR \\
@@ -26,10 +27,17 @@ turns the pipeline off) and prints its latencies and frames/s.
 $POCO_TPU_YOLO_WEIGHTS or data/detector/yolov3.weights (not in the repo;
 nothing fetches it) and, without one, turns into `refine` with a notice.
 `hog` and `refine` start from full-frame proposals (no HOG without
-OpenCV). Refused, each naming its ROADMAP.md item: a camera or stream
-URL as `--webcam_source` (cv2.VideoCapture), `--display`, `--wireframe`,
-`--draw_keypoints`, video-mode `--sideview`, `--tracking_method pose`,
-`--detector maskrcnn` and YouTube URLs.
+OpenCV). As in `demo.py`, `--draw_keypoints` marks the folder mode's
+projected joints, `--wireframe` draws the video mode's meshes as face
+outlines, video-mode `--sideview` adds the captioned side view, and
+`--tracking_method pose` reads keypoint tracks from posetrack JSON in
+`<output_folder>/posetrack` (written there first by the STAF OpenPose
+binary when `--staf_dir` is given; `utils/pose_tracker.py`). The drawing
+is drawn without OpenCV: the wireframe and keypoints as cv2 draws them
+(`runtime/native/poco_raster.cpp`), the caption as a model of OpenCV 5's
+text (`viz/text.py`). Refused, each naming its ROADMAP.md item: a camera or
+stream URL as `--webcam_source` (cv2.VideoCapture), `--display` (a cv2
+window), `--detector maskrcnn` and YouTube URLs.
 TF32 is switched off for cuBLAS and cuDNN.
 """
 
@@ -42,6 +50,7 @@ import os.path as osp
 import time
 
 import torch
+from ..device import default_device
 
 ROADMAP = "ROADMAP.md queue A item 4"
 
@@ -88,7 +97,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "(on unless this flag is given, as in the reference)")
     parser.add_argument("--display", action="store_true", help="refused (a cv2 window)")
     parser.add_argument("--tracking_method", default="bbox", choices=["bbox", "pose"])
-    parser.add_argument("--staf_dir", default=None, help="unused: pose tracking is refused")
+    parser.add_argument("--staf_dir", default=None,
+                        help="STAF build folder: run its OpenPose binary for "
+                             "--tracking_method pose (else read existing JSON)")
     parser.add_argument("--smooth", action="store_true")
     parser.add_argument("--min_cutoff", type=float, default=0.004)
     parser.add_argument("--beta", type=float, default=0.7)
@@ -103,13 +114,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="render the overlay on the 224px crop instead of the frame")
     parser.add_argument("--no_uncert_color", action="store_true")
     parser.add_argument("--sideview", action="store_true",
-                        help="folder mode: a side view beside each frame")
-    parser.add_argument("--wireframe", action="store_true", help="refused (cv2.polylines)")
+                        help="a side view beside each frame (captioned in video mode)")
+    parser.add_argument("--wireframe", action="store_true",
+                        help="video mode: draw the meshes as face outlines")
     parser.add_argument("--save_obj", action="store_true")
-    parser.add_argument("--draw_keypoints", action="store_true", help="refused (cv2.circle)")
+    parser.add_argument("--draw_keypoints", action="store_true",
+                        help="folder mode: mark the projected 2D joints")
     parser.add_argument("--dir_chunk_size", type=int, default=-1)
     parser.add_argument("--dir_chunk", type=int, default=0)
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--device", default=default_device(),
+                        help="cuda or cpu (default: $POCO_TPU_PLATFORM, else cuda)")
     args = parser.parse_args(argv)
     if args.exp:
         args.output_folder = args.output_folder.rstrip("/") + "_" + args.exp
@@ -124,15 +138,6 @@ def refuse_unported(args) -> None:
                        "(cv2.VideoCapture; a directory of frames replays)")
     if args.display:
         refused.append("--display (a cv2 window)")
-    if args.wireframe:
-        refused.append("--wireframe (cv2.polylines)")
-    if args.draw_keypoints:
-        refused.append("--draw_keypoints (cv2.circle)")
-    if args.mode == "video" and args.sideview:
-        refused.append('video-mode --sideview (its "Other View" caption is cv2.putText)')
-    if args.tracking_method == "pose":
-        refused.append("--tracking_method pose (utils/pose_tracker.py, an external "
-                       "OpenPose/STAF binary)")
     if args.detector == "maskrcnn":
         refused.append("--detector maskrcnn (the Mask R-CNN option)")
     if args.vid_file and args.vid_file.startswith(("https://", "http://")):
@@ -205,8 +210,14 @@ def run_video(args, tester) -> dict:
         stem = osp.basename(osp.normpath(img_folder))
         n_frames = len(images_in_folder(img_folder))
     t0 = time.time()
-    tracks = tester.run_tracking(img_folder,
-                                 cache_file=osp.join(out_dir, "tracking_results.pkl"))
+    if args.tracking_method == "pose":
+        from ..utils.pose_tracker import run_posetracker
+
+        tracks = run_posetracker(img_folder, staf_folder=args.staf_dir,
+                                 posetrack_output_folder=osp.join(out_dir, "posetrack"))
+    else:
+        tracks = tester.run_tracking(img_folder,
+                                     cache_file=osp.join(out_dir, "tracking_results.pkl"))
     results = tester.run_on_video(img_folder, tracks=tracks, smooth=args.smooth,
                                   min_cutoff=args.min_cutoff, beta=args.beta)
     print(f"poco FPS: {n_frames / max(time.time() - t0, 1e-9):.2f} "
@@ -215,7 +226,9 @@ def run_video(args, tester) -> dict:
         render_dir = osp.join(out_dir, "rendered")
         tester.render_results(results, img_folder, render_dir,
                               uncert_color=not args.no_uncert_color,
-                              uncert_log=osp.join(out_dir, "uncertainty.log"))
+                              wireframe=args.wireframe,
+                              uncert_log=osp.join(out_dir, "uncertainty.log"),
+                              sideview=args.sideview)
         tag = f"_{args.exp}" if args.exp else ""
         if has_ffmpeg():
             images_to_video(render_dir, osp.join(out_dir, f"{stem}{tag}_poco.mp4"))
@@ -234,6 +247,7 @@ def run_folder(args, tester) -> list:
         sideview=args.sideview,
         save_obj=args.save_obj,
         uncert_color=not args.no_uncert_color,
+        draw_keypoints=args.draw_keypoints,
         skip_frame=args.skip_frame,
         render_crop=args.render_crop,
     )

@@ -31,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from ..device import default_device
 from ..parallel import distributed as dist
 
 
@@ -53,8 +54,8 @@ def parse_args(argv=None) -> argparse.Namespace:
              "through the same model, the rotations un-flipped and averaged "
              "on SO(3), one more SMPL pass; about 2x the compute",
     )
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu")
+    parser.add_argument("--device", default=default_device(),
+                        help="cuda or cpu (default: $POCO_TPU_PLATFORM, else cuda)")
     parser.add_argument("--dist", action="store_true",
                         help="form the process group from torchrun's environment (the "
                              "POCO_* variables form it without this flag); metrics are "

@@ -22,6 +22,7 @@ import argparse
 import os
 
 import torch
+from ..device import default_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported (ROADMAP.md queue A item 3)")
     ap.add_argument("--platforms", default=None,
                     help="not ported: an artifact serves on its export device")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default=default_device(),
+                    help="cuda or cpu (default: $POCO_TPU_PLATFORM, else cuda)")
     return ap
 
 

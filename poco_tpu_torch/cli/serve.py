@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 
 import torch
+from ..device import default_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,7 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--artifact", required=True)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default=default_device(),
+                    help="cuda or cpu (default: $POCO_TPU_PLATFORM, else cuda)")
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--batch-window-ms", type=float, default=5.0,
                     help="micro-batch coalescing window")

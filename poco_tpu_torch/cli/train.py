@@ -23,7 +23,8 @@ maybe_initialize`: with POCO_COORDINATOR / POCO_NUM_PROCESSES /
 POCO_PROCESS_ID set, or with `--dist` under torchrun
 (`torchrun --nproc_per_node N -m poco_tpu_torch.cli.train --dist ...`).
 DATASET.BATCH_SIZE stays the global batch; rank 0 writes the logs and
-checkpoints and prints.
+checkpoints and prints, and copies the code (the package and
+chip_smoke.py) into `<logdir>/code` first, as train.py does.
 
 `--make_launcher bash|slurm` writes `scripts/<name>.sh` (a loop) or
 `scripts/<name>.sbatch` (a SLURM array) that runs every experiment of the
@@ -37,6 +38,7 @@ import os
 
 import torch
 
+from ..device import default_device
 from ..parallel import distributed as dist
 
 
@@ -110,7 +112,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="pin the run to this logdir (pairs with --resume)")
     parser.add_argument("--pretrained", default=None,
                         help="warm-start weights (torch .pt); overrides TRAINING.PRETRAINED")
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--device", default=default_device(),
+                        help="cuda or cpu (default: $POCO_TPU_PLATFORM, else cuda)")
     parser.add_argument("--dist", action="store_true",
                         help="form the process group from torchrun's environment (the "
                              "POCO_* variables form it without this flag)")
@@ -145,6 +148,7 @@ def _train(args) -> dict:
     from ..config import run_grid_search_experiments
     from ..smpl.assets import resolve_smpl_params
     from ..train.trainer import Trainer
+    from ..utils.os_utils import copy_code
 
     logdir = args.logdir
     if dist.process_count() > 1 and logdir is None:
@@ -158,6 +162,8 @@ def _train(args) -> dict:
         hparams.DATASET.DATA_DIR = args.data_dir
     if args.pretrained:
         hparams.TRAINING.PRETRAINED = args.pretrained
+    if dist.is_main_process():
+        copy_code(hparams.LOG_DIR)
     train_dataset_fn, val_dataset = build_datasets(hparams)
     trainer = Trainer(
         hparams,

@@ -44,8 +44,22 @@ from ..utils.demo_utils import (
     convert_crop_coords_to_orig_img,
     prepare_rendering_results,
 )
-from ..viz.renderer import Renderer, get_vertex_colors, refuse, save_obj
+from ..runtime.raster import circles_aa
+from ..viz.renderer import Renderer, get_vertex_colors, overlay_text, refuse, save_obj
 from .tracker import Detector, full_frame_detector, run_tracking
+
+
+def draw_keypoints_2d(frame: np.ndarray, joints2d: np.ndarray, radius: int = 3) -> np.ndarray:
+    """Mark projected 2D joints (reference --draw_keypoints flag,
+    demo.py:279-281): a filled green circle of `radius` at each finite
+    joint, truncated to whole pixels, as `cv2.circle(..., -1, LINE_AA)`
+    draws it (`runtime.raster.circles_aa`), in place when `frame` is a
+    C-contiguous uint8 image."""
+    out = np.ascontiguousarray(frame)
+    pts = np.concatenate([person[:, :2] for person in np.atleast_3d(joints2d)])
+    pts = pts[np.isfinite(pts).all(axis=1)]
+    circles_aa(out, np.trunc(pts).astype(np.int64), radius, (0, 255, 0))
+    return out
 
 
 def _on_device(x, device, dtype):
@@ -131,7 +145,7 @@ class PocoTester:
         self.backbone = model.cfg.backbone
         self.loss_ver = model.cfg.loss_ver
         self.faces = smpl.faces.cpu().numpy()
-        self.lbs_weights = smpl.lbs_weights.cpu().numpy()
+        self.lbs_weights = smpl.all_lbs_weights.cpu().numpy()
         self.renderer = Renderer(self.faces)
         self.stage_seconds: Counter = Counter()
 
@@ -368,11 +382,10 @@ class PocoTester:
         coordinates, and with `render` write the overlay under its input's
         own name and format (twice the width with `sideview`). skip_frame=N
         takes every Nth image; render_crop draws on the first detection's 224-px
-        crop with the crop camera (tester.py:256-280). `draw_keypoints`
-        (`cv2.circle`) and `display` (a cv2 window) are refused.
+        crop with the crop camera (tester.py:256-280); `draw_keypoints`
+        marks the projected joints (`draw_keypoints_2d`). `display` (a cv2
+        window) is refused.
         """
-        if draw_keypoints:
-            refuse("--draw_keypoints (cv2.circle, LINE_AA)")
         if display:
             refuse("--display (a cv2 window)")
         image_files = images_in_folder(image_folder)[:: max(skip_frame, 1)]
@@ -392,13 +405,15 @@ class PocoTester:
                 continue
             with self._stage("render"):
                 frame = self._render_folder_frame(img, img_path, result, output_folder,
-                                                  sideview, save_obj, uncert_color, render_crop)
+                                                  sideview, save_obj, uncert_color, render_crop,
+                                                  draw_keypoints)
             with self._stage("write"):
                 write_image(osp.join(output_folder, osp.basename(img_path)), frame)
         return results
 
     def _render_folder_frame(self, img, img_path, result, output_folder, sideview,
-                             with_obj, uncert_color, render_crop) -> np.ndarray:
+                             with_obj, uncert_color, render_crop,
+                             draw_keypoints=False) -> np.ndarray:
         dets = result["bboxes"]
         _, centers, scales = _boxes(dets)
         var = result["var"]
@@ -424,6 +439,8 @@ class PocoTester:
             if with_obj:
                 save_obj(osp.join(output_folder, f"{osp.basename(img_path)}_{pi}.obj"),
                          result["verts"][pi], self.faces)
+        if draw_keypoints:
+            frame = draw_keypoints_2d(frame, result["smpl_joints2d"])
         if side_frame is not None:
             frame = np.concatenate([frame, side_frame], axis=1)
         return frame
@@ -524,15 +541,13 @@ class PocoTester:
     ) -> None:
         """Depth-sorted per-frame rendering to `%06d.png` (reference
         tester.py:482-580), and the per-person global uncertainty log
-        (`frame person value` lines). `wireframe` (`cv2.polylines`),
-        `display` (a cv2 window) and `sideview` (its "Other View" caption
-        is `cv2.putText`) are refused."""
-        if wireframe:
-            refuse("--wireframe (cv2.polylines, LINE_AA)")
+        (`frame person value` lines). `wireframe` draws the meshes as face
+        outlines; `sideview` renders the meshes turned 270 degrees on a
+        black canvas with the "Other View" caption (`overlay_text`) beside
+        each frame (tester.py:511,557-570). `display` (a cv2 window) is
+        refused."""
         if display:
             refuse("--display (a cv2 window)")
-        if sideview:
-            refuse('video-mode --sideview (its "Other View" caption is cv2.putText)')
         image_files = images_in_folder(image_folder)
         os.makedirs(output_folder, exist_ok=True)
         frame_results = prepare_rendering_results(results, len(image_files))
@@ -541,15 +556,23 @@ class PocoTester:
             with self._stage("decode"):
                 frame = read_image_rgb(img_path)
             with self._stage("render"):
+                side_frame = np.zeros_like(frame) if sideview else None
                 for person_id, data in frame_results[frame_id].items():
                     vc = (self._vertex_colors(data["var"])
                           if uncert_color and data.get("var") is not None else None)
                     frame = self.renderer.render(frame, data["verts"], data["cam"],
-                                                 vertex_colors=vc)
+                                                 vertex_colors=vc, wireframe=wireframe)
+                    if side_frame is not None:
+                        side_frame = self.renderer.render(
+                            side_frame, data["verts"], data["cam"], vertex_colors=vc,
+                            wireframe=wireframe, angle=270.0, axis=(0, 1, 0))
                     if data.get("var_global") is not None:
                         log_lines.append(
                             f"{frame_id} {person_id} {float(data['var_global']):.4f}"
                         )
+                if side_frame is not None:
+                    frame = np.concatenate([frame, overlay_text(side_frame, "Other View")],
+                                           axis=1)
             with self._stage("write"):
                 write_png(osp.join(output_folder, f"{frame_id:06d}.png"), frame)
         if uncert_log:

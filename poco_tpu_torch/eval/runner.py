@@ -279,7 +279,7 @@ def run_eval(
     """
     from ..data.dataset import DataLoader
 
-    world = distributed.process_count()
+    world = distributed.data_count()
     device = next(model.parameters()).device
     smpl_male = smpl_male or smpl_neutral
     smpl_female = smpl_female or smpl_neutral

@@ -80,10 +80,10 @@ class LossConfig:
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean of x over the global batch: with more than one process, this
-    process's share of it (its rows' sum over the global count; every
-    process holds as many rows), so that the shares sum to the mean."""
-    world = distributed.process_count()
+    """Mean of x over the global batch: with more than one data shard,
+    this process's share of it (its rows' sum over the global count; every
+    shard holds as many rows), so that the shards' shares sum to the mean."""
+    world = distributed.data_count()
     if world == 1:
         return x.mean()
     return x.sum() / (x.numel() * world)
@@ -91,8 +91,9 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of x over the rows where mask (B,) is 1; 0 if none is. With
-    more than one process the rows are the global batch's: this process's
-    share (its rows' sum over the global count of masked entries)."""
+    more than one data shard the rows are the global batch's: this
+    process's share (its rows' sum over the global count of masked
+    entries)."""
     mask = mask.to(x.dtype)
     weighted = x * mask.reshape((-1,) + (1,) * (x.ndim - 1))
     per_row = x[0].numel()

@@ -34,9 +34,9 @@ def part_segmentation_loss(pred_logits: torch.Tensor, gt_labels: torch.Tensor,
         w = valid_mask.to(per_sample.dtype)
         count = distributed.all_reduce_sum_(w.sum())
         return (per_sample * w).sum() / torch.clamp(count, min=1.0)
-    if distributed.process_count() == 1:
+    if distributed.data_count() == 1:
         return per_sample.mean()
-    return per_sample.sum() / (per_sample.numel() * distributed.process_count())
+    return per_sample.sum() / (per_sample.numel() * distributed.data_count())
 
 
 def neg_iou_loss(predict: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

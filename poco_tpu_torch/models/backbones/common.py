@@ -47,22 +47,22 @@ class FlaxVarianceBN:
     it for all of a model's layers at once around the model's forward. The
     layer only records the n it normalized over while that is active.
 
-    In training with more than one process the statistics are the global
-    batch's, as flax takes them over a batch sharded across chips
-    (`_global_forward`); n is then the global count.
+    In training with more than one data shard the statistics are the
+    global batch's, as flax takes them over a batch sharded across chips
+    (`_global_forward`, over the data group); n is then the global count.
     """
 
     batch_counts: list[int] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and distributed.process_count() > 1:
+        if self.training and distributed.data_count() > 1:
             return self._global_forward(x)
         if self.batch_counts is not None:
             self.batch_counts.append(x.numel() // x.shape[1])
         return super().forward(x)
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Batch norm over the rows of every process (each holds as many).
+        """Batch norm over the rows of every data shard (each holds as many).
 
         Two passes, each a sum over processes that carries a gradient
         (`distributed.all_reduce_sum`: two collectives a forward, two in
@@ -75,7 +75,7 @@ class FlaxVarianceBN:
         dims = [0, *range(2, x.ndim)]
         view = (1, c) + (1,) * (x.ndim - 2)
         xf = x.float()
-        n = x.numel() // c * distributed.process_count()
+        n = x.numel() // c * distributed.data_count()
         mean = distributed.all_reduce_sum(xf.sum(dims)) / n
         xc = xf - mean.view(view)
         var = distributed.all_reduce_sum((xc * xc).sum(dims)) / n

@@ -23,13 +23,14 @@ def dropout_keep_mask(x: torch.Tensor, keep: float) -> torch.Tensor:
     that a test can feed every dropout layer one mask (all-keep, for
     parity with the JAX package, whose random bits torch cannot repeat).
 
-    x holds this process's rows of the global batch (each process as
-    many): every process draws the mask of the whole global batch from its
-    generator, which every process seeds alike, and keeps its own rows, so
-    the processes drop what one process would drop."""
+    x holds this process's data shard of the global batch (each shard as
+    many rows): every process draws the mask of the whole global batch
+    from its generator, which every process seeds alike, and keeps its own
+    rows, so the processes drop what one process would drop, and the
+    processes of a model group (the same rows) drop alike."""
     rows = x.shape[0]
-    full = torch.rand((rows * distributed.process_count(), *x.shape[1:]), device=x.device)
-    lo = distributed.process_index() * rows
+    full = torch.rand((rows * distributed.data_count(), *x.shape[1:]), device=x.device)
+    lo = distributed.data_index() * rows
     return full[lo:lo + rows] < keep
 
 

@@ -4,6 +4,7 @@ conditioning, in plain torch (port of `poco_tpu.ops.preprocess`).
 One image goes to the device once (uint8) and every person crop comes
 from one inverse-affine bilinear gather. Conventions match cv2
 (pixel centers at integer coordinates, INTER_LINEAR, BORDER_CONSTANT=0).
+`crop_and_resize_mxu` is the separable option: two fp32 products.
 """
 
 from __future__ import annotations
@@ -105,6 +106,50 @@ def crop_and_resize(
         + t[:, 1, None, None]
     )
     return bilinear_sample_image(image, xs, ys)
+
+
+def crop_and_resize_mxu(
+    image: torch.Tensor,
+    center: torch.Tensor,
+    bbox_size: torch.Tensor,
+    out_res: int = IMG_RES,
+) -> torch.Tensor:
+    """Axis-aligned crops as two products (port of the JAX package's
+    `crop_and_resize_mxu`), an option beside the gather of
+    `crop_and_resize`; nothing on the demo's path switches to it.
+
+    An unrotated bilinear resample is separable: out = Ry @ img @ Rx^T,
+    with Ry (R, H) and Rx (R, W) dense rows of at most two bilinear taps
+    (zero padding outside the image falls out of rows that sum to less
+    than 1). Both contractions run in fp32 (the JAX package's
+    Precision.HIGHEST); on a card with TF32 matmuls on they would round
+    the pixels to 10 bits, so that raises.
+
+    Args:
+        image: (H, W, 3) source image.
+        center: (B, 2) crop centres (x, y).
+        bbox_size: (B,) box edge in source pixels.
+    Returns:
+        (B, out_res, out_res, 3) float32 crops.
+    """
+    if image.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "crop_and_resize_mxu needs fp32 matmuls without TF32: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+    image = image.float()
+    h, w = image.shape[:2]
+    grid = torch.arange(out_res, dtype=torch.float32, device=image.device)
+    scale = (bbox_size.float() / out_res)[:, None]
+    xs = (grid[None, :] - out_res / 2.0) * scale + center[:, :1].float()
+    ys = (grid[None, :] - out_res / 2.0) * scale + center[:, 1:2].float()
+
+    def weight_rows(coords: torch.Tensor, n: int) -> torch.Tensor:
+        """(B, R) source coordinates -> (B, R, n) bilinear weight rows."""
+        idx = torch.arange(n, dtype=torch.float32, device=image.device)
+        return torch.clamp(1.0 - (coords[..., None] - idx).abs(), min=0.0)
+
+    rows = torch.einsum("biy,yxc->bixc", weight_rows(ys, h), image)
+    return torch.einsum("bjx,bixc->bijc", weight_rows(xs, w), rows)
 
 
 def normalize_image(crops: torch.Tensor, max_val: float = 255.0) -> torch.Tensor:

@@ -141,6 +141,9 @@ def export_poco(
         raise ValueError(f"batch_sizes must be positive, got {batch_sizes}")
     if model.training:
         raise ValueError("export_poco: put the model in eval mode first (model.eval())")
+    if smpl.shard is not None:
+        raise ValueError("export_poco: an artifact holds the whole SMPL; pass the unsharded "
+                         "params, not shard_smpl_params' (one process's vertex range)")
     dtypes = {p.dtype for p in model.parameters()}
     if dtypes != {torch.float32}:
         raise not_ported(f"export of {sorted(map(str, dtypes))} weights", "item 6, bf16")

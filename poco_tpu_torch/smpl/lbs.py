@@ -6,6 +6,16 @@ stage goes through `ops.skinning.skinning`, which launches the CUDA
 kernel on CUDA tensors. All math is float32; callers that need it exact
 keep TF32 off (`torch.backends.cuda.matmul.allow_tf32 = False`, the
 default).
+
+Params that carry a `VertexShard` (`parallel.mesh.shard_smpl_params`: the
+SMPL "model" axis) hold one process's vertex range, and the forward runs
+on that shard: the shaped and posed vertices and the skinning kernel on
+the shard's vertices, the rest joints and the extra joints as partial
+sums over the model group, the kinematic chain replicated, and the
+vertices gathered in shard order at the end, so that every caller reads
+the whole mesh as before. The crossings are the autograd functions of
+`parallel.distributed` (`model_partial_sum`, `model_replicated`,
+`model_gather`), which keep the gradients those of one process.
 """
 
 from __future__ import annotations
@@ -16,11 +26,33 @@ from typing import NamedTuple
 import torch
 
 from ..ops.skinning import skinning
+from ..parallel import distributed
 
 _TENSOR_FIELDS = (
     "v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights",
     "j_regressor_extra", "faces",
 )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VertexShard:
+    """One process's share of the SMPL vertices on the model axis.
+
+        lo, hi: its vertex range [lo, hi)
+        counts: the vertices of each model index, in order
+        group: the model group (`parallel.distributed.model_group()`)
+        lbs_weights: (V, 24) every vertex's skinning weights, for the
+            readers of the whole mesh's parts (part labels, colours)
+    """
+
+    lo: int
+    hi: int
+    counts: tuple
+    group: object
+    lbs_weights: torch.Tensor
+
+    def to(self, device) -> "VertexShard":
+        return dataclasses.replace(self, lbs_weights=self.lbs_weights.to(device))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -36,6 +68,9 @@ class SmplParams:
         faces: (F, 3) int32 triangle indices
         parents: kinematic parent table (parents[0] == -1)
         vertex_joint_ids: vertex indices appended as 21 keypoints
+        shard: this process's vertex range on the model axis, or None;
+            with a shard the vertex arrays hold that range only (their V
+            is the shard's), `faces` and `vertex_joint_ids` stay global
     """
 
     v_template: torch.Tensor
@@ -47,11 +82,18 @@ class SmplParams:
     faces: torch.Tensor
     parents: tuple
     vertex_joint_ids: tuple
+    shard: VertexShard | None = None
 
     def to(self, device) -> "SmplParams":
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS}
+            self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS},
+            shard=None if self.shard is None else self.shard.to(device),
         )
+
+    @property
+    def all_lbs_weights(self) -> torch.Tensor:
+        """(V, 24) the skinning weights of every vertex, sharded or not."""
+        return self.lbs_weights if self.shard is None else self.shard.lbs_weights
 
 
 class SmplOutput(NamedTuple):
@@ -120,25 +162,34 @@ def lbs(
         betas: (B, num_betas) shape coefficients.
         pose_rotmats: (B, 24, 3, 3) per-joint rotations (root first).
     Returns:
-        vertices (B, V, 3), joints_lbs (B, 24, 3).
+        vertices (B, V, 3), joints_lbs (B, 24, 3). With a shard the
+        vertices are the shard's (B, hi - lo, 3).
     """
     batch = betas.shape[0]
     num_verts = params.v_template.shape[0]
     dtype = params.v_template.dtype
     betas = betas.to(dtype)
     pose_rotmats = pose_rotmats.to(dtype)
+    group = None if params.shard is None else params.shard.group
 
-    v_shaped = params.v_template[None] + blend_shapes(betas, params.shapedirs)
-    j_rest = vertices2joints(params.j_regressor, v_shaped)
+    def into_shard(x):
+        return x if group is None else distributed.model_replicated(x, group)
+
+    def over_shards(x):
+        return x if group is None else distributed.model_partial_sum(x, group)
+
+    v_shaped = params.v_template[None] + blend_shapes(into_shard(betas), params.shapedirs)
+    j_rest = over_shards(vertices2joints(params.j_regressor, v_shaped))
 
     ident = torch.eye(3, dtype=dtype, device=pose_rotmats.device)
     pose_feature = (pose_rotmats[:, 1:] - ident).reshape(batch, -1)  # (B, 207)
-    pose_offsets = (pose_feature @ params.posedirs).reshape(batch, num_verts, 3)
+    pose_offsets = (into_shard(pose_feature) @ params.posedirs).reshape(batch, num_verts, 3)
     v_posed = v_shaped + pose_offsets
 
     joints_posed, rel_tfms = batch_rigid_transform(
         pose_rotmats, j_rest, params.parents
     )
+    rel_tfms = into_shard(rel_tfms)
     verts = skinning(
         params.lbs_weights.contiguous(), rel_tfms.contiguous(),
         v_posed.contiguous(),
@@ -157,8 +208,12 @@ def smpl_forward(
         [45:54)  extra regressed joints (J_regressor_extra)
     """
     verts, joints_lbs = lbs(betas, pose_rotmats, params)
+    extra_joints = vertices2joints(params.j_regressor_extra, verts)
+    if params.shard is not None:
+        group = params.shard.group
+        extra_joints = distributed.model_partial_sum(extra_joints, group)
+        verts = distributed.model_gather(verts, group, params.shard.counts, dim=1)
     ids = torch.as_tensor(params.vertex_joint_ids, device=verts.device)
     vertex_joints = verts[:, ids]
-    extra_joints = vertices2joints(params.j_regressor_extra, verts)
     joints = torch.cat([joints_lbs, vertex_joints, extra_joints], dim=1)
     return SmplOutput(vertices=verts, joints=joints, joints_lbs=joints_lbs)

@@ -89,7 +89,7 @@ def render_targets(batch: dict[str, torch.Tensor], gt: dict[str, torch.Tensor],
         out["gt_smpl_render"] = soft_silhouette(verts, gt_cam)
         out["gt_cam_render"] = gt_cam
     if loss_cfg.use_smpl_segm_loss:
-        out["gt_segm_mask"] = soft_part_probs(verts, gt_cam, smpl.lbs_weights).argmax(-1)
+        out["gt_segm_mask"] = soft_part_probs(verts, gt_cam, smpl.all_lbs_weights).argmax(-1)
     return out
 
 
@@ -141,8 +141,10 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
         with record_function(TRAIN_STAGES[2]):
             optimizer.zero_grad()
             loss.backward()
-            # each process's loss is its share of the global one: the sum
-            # of the gradients is the one-process gradient
+            # each data shard's loss is its share of the global one: the
+            # sum of the gradients over the data group is the one-process
+            # gradient (a model group's, equal but for the card's last
+            # bits, are averaged)
             distributed.all_reduce_gradients(optimizer.params)
         with record_function(TRAIN_STAGES[3]):
             grad_norm = optimizer.step()
@@ -162,8 +164,8 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
 
 def global_loss_terms(terms: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The loss terms of the global batch, the same on every process: the
-    sum of the processes' shares, in one collective."""
-    if distributed.process_count() == 1:
+    sum of the data shards' shares, in one collective."""
+    if distributed.data_count() == 1:
         return terms
     total = distributed.all_reduce_sum_(torch.stack(list(terms.values())))
     return dict(zip(terms, total.unbind()))

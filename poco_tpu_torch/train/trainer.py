@@ -118,7 +118,7 @@ class Trainer:
                 "poco_tpu_torch.data.occlusion (load_pascal_occluders, synthetic_occluders)"
             )
         self.device = resolve_device(device)
-        self.world = dist.process_count()
+        self.world = dist.data_count()
         self.is_main = dist.is_main_process()
         self.hparams = hparams
         self.smpl = smpl.to(self.device)
@@ -336,7 +336,7 @@ class Trainer:
             shuffle=self.hparams.DATASET.SHUFFLE_TRAIN,
             seed=epoch,
             num_shards=self.world,
-            shard_index=dist.process_index(),
+            shard_index=dist.data_index(),
         )
         n_crops = 0
         start = time.perf_counter()

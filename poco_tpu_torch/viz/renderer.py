@@ -5,9 +5,10 @@ pocolib/utils/vibe_renderer.py:34-151, renderer.py:137-224).
 The mesh is projected with the [sx, sy, tx, ty] original-image camera,
 flat-shaded per face and drawn by the native z-buffer rasterizer
 (`runtime/raster.py`), the only route: the JAX package's painter's loop
-is `cv2.fillPoly`, and the port has no OpenCV. Wireframe rendering
-(`cv2.polylines`) and the sideview caption (`overlay_text`,
-`cv2.putText`) are refused with an error naming their ROADMAP.md item.
+is `cv2.fillPoly`, and the port has no OpenCV. With `wireframe` each face
+is outlined far first, as the JAX package's `cv2.polylines` loop draws it
+(`runtime.raster.wireframe`, native). The sideview caption is
+`overlay_text` (`viz/text.py`).
 
 The SMPL part segmentation of the uncertainty colours is the skinning
 weights' argmax over joints.
@@ -18,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..runtime.raster import raster_mesh
+from ..runtime.raster import wireframe as wireframe_faces
+from .text import get_text_size, put_text
 
 ROADMAP_ITEM = "ROADMAP.md queue A item 4 (the demo's cv2 drawing calls)"
 
@@ -140,8 +143,6 @@ class Renderer:
                 (from demo_utils.convert_crop_cam_to_orig_img), or (3,)
                 crop camera [s, tx, ty] (sx = sy = s assumed).
         """
-        if wireframe:
-            refuse("wireframe rendering (cv2.polylines, LINE_AA)")
         if img is None:
             img = np.zeros((self.height, self.width, 3), np.uint8)
         h, w = img.shape[:2]
@@ -191,7 +192,15 @@ class Renderer:
             ).copy()
         face_rgb = np.clip(face_rgb * light[:, None], 0, 1) * 255.0
 
-        overlay = raster_mesh(out, uv, tri_z, self.faces, face_rgb, on_screen)
+        if wireframe:
+            # the JAX package's painter's loop: far faces first, each a
+            # closed cv2.polylines outline over the float overlay
+            order = np.argsort(tri_z)
+            order = order[on_screen[order]]
+            pts = np.round(tri_uv[order]).astype(np.int32)
+            overlay = wireframe_faces(out, pts, face_rgb[order])
+        else:
+            overlay = raster_mesh(out, uv, tri_z, self.faces, face_rgb, on_screen)
         out = (1 - alpha) * out + alpha * overlay
         return np.clip(out, 0, 255).astype(np.uint8)
 
@@ -225,5 +234,20 @@ def save_obj(path: str, verts: np.ndarray, faces: np.ndarray) -> None:
 
 
 def overlay_text(image: np.ndarray, txt_str: str, str_id: int = 1) -> np.ndarray:
-    """The JAX package's caption (`cv2.putText`, Hershey font): refused."""
-    refuse("overlay_text (cv2.putText)")
+    """White-boxed red text, sized to the image (the JAX package's caption:
+    `cv2.getTextSize`, a filled `cv2.rectangle` and `cv2.putText` with
+    FONT_HERSHEY_SIMPLEX; reference pocolib/utils/image_utils.py:355-367,
+    whose only live use is the sideview "Other View" caption,
+    tester.py:567). The box is the rectangle's pixels, corners included;
+    the text is `viz.text`'s model of cv2's (OpenCV 5's Rubik glyphs)."""
+    image = np.ascontiguousarray(image)
+    font_scale = image.shape[0] * 0.0016
+    thickness = max(int(image.shape[0] * 0.005), 1)
+    bbox_offset = int(image.shape[0] * 0.01)
+    text_x = int(image.shape[1] * 0.02)
+    text_y = int(image.shape[0] * 0.06 * str_id)
+    tw, th = get_text_size(txt_str, font_scale, thickness)
+    x0, x1 = text_x, text_x + tw + bbox_offset
+    y0, y1 = text_y - th - bbox_offset, text_y + bbox_offset
+    image[max(y0, 0):max(y1 + 1, 0), max(x0, 0):max(x1 + 1, 0)] = 255
+    return put_text(image, txt_str, (text_x, text_y), font_scale, (255, 0, 0), thickness)

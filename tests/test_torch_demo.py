@@ -30,7 +30,9 @@ tolerances are stated beside each check:
     1e-3; folder mode with sideview, render_crop and skip_frame, video
     mode with and without smoothing, the refine and uncert detectors;
   * the CLI: folder and video modes with `--device cpu`, and every
-    refused flag's error names its ROADMAP.md item.
+    refused flag's error names its ROADMAP.md item (the drawing flags and
+    pose tracking run: tests/test_torch_drawing.py,
+    tests/test_torch_pose_tracker.py).
 """
 
 import ast
@@ -371,11 +373,16 @@ def test_render_matches_jax(sideview):
 
 
 def test_renderer_refuses_cv2_drawing():
+    """The renderer draws the wireframe and the caption now (held to cv2
+    and the JAX package in tests/test_torch_drawing.py); what the demo
+    still refuses (a cv2 window) raises through `renderer.refuse`, naming
+    its ROADMAP.md item."""
     verts, faces = _mesh()
+    frame = renderer.Renderer(faces).render(None, verts, np.ones(4), wireframe=True)
+    assert frame.shape == (224, 224, 3) and frame.any()
+    assert renderer.overlay_text(np.zeros((64, 64, 3), np.uint8), "Other View").any()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        renderer.Renderer(faces).render(None, verts, np.ones(4), wireframe=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        renderer.overlay_text(np.zeros((8, 8, 3), np.uint8), "Other View")
+        renderer.refuse("--display (a cv2 window)")
 
 
 def test_colormap_and_part_ids_match_jax():
@@ -610,13 +617,14 @@ def test_model_in_the_loop_detectors_match_jax(testers, frame_folder, kind):
 
 
 def test_tester_refuses_cv2_drawing(testers, frame_folder, tmp_path):
+    """The one cv2 drawing call the tester still refuses is the window
+    (`display`), in both modes; the keypoints, the wireframe and the
+    captioned side view draw (tests/test_torch_drawing.py)."""
     port, _ = testers
-    for kwargs in ({"draw_keypoints": True}, {"display": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-            port.run_on_image_folder(frame_folder, str(tmp_path), **kwargs)
-    for kwargs in ({"wireframe": True}, {"sideview": True}, {"display": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-            port.render_results({}, frame_folder, str(tmp_path), **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
+        port.run_on_image_folder(frame_folder, str(tmp_path), display=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
+        port.render_results({}, frame_folder, str(tmp_path), display=True)
 
 
 # --------------------------------------------------------------------------
@@ -644,11 +652,17 @@ def test_cli_folder_and_video_on_the_cpu(frame_folder, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mode", "webcam"], ["--display"], ["--wireframe"], ["--draw_keypoints"],
-    ["--mode", "video", "--sideview"], ["--mode", "video", "--tracking_method", "pose"],
+    ["--mode", "webcam"], ["--display"], ["--mode", "webcam", "--webcam_source", "1"],
+    ["--mode", "video", "--display"],
+    ["--mode", "webcam", "--webcam_source", "rtsp://host/stream"],
+    ["--mode", "directory", "--display"],
     ["--detector", "maskrcnn"], ["--mode", "video", "--vid_file", "https://youtu.be/x"],
 ])
 def test_cli_refuses_unported_flags(flags):
+    """Every mode and flag still unported raises, naming its ROADMAP.md
+    item: a camera or stream as the webcam source, the cv2 window in each
+    mode, Mask R-CNN and YouTube URLs (`--wireframe`, `--draw_keypoints`,
+    video-mode `--sideview` and `--tracking_method pose` run now)."""
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item 4"):
         cli_demo.main(["--cfg", TINY_YAML, *flags, "--device", "cpu"])
 

@@ -30,7 +30,9 @@ decodes the smoke JPEGs within 2 grey levels of cv2's 16x16 thumbnails,
 applies EXIF orientation in cv2's layout, and raises on bad files.
 `cli.train --dist` and `cli.eval --dist` form an NCCL world of one on the
 card and give the runs without --dist (chip_smoke.py phase 4i (a)).
-The demo: YOLOv3's maps and decoded boxes on the card within 1e-4 of the
+Both kernels at the SMPL model axis's vertex-shard shapes (V = 3445, an
+odd half of 6890, and quarters) through the custom op's autograd. The
+demo: YOLOv3's maps and decoded boxes on the card within 1e-4 of the
 CPU's float64; `PocoTester.run_on_image_folder` of tiny-cliff on the card
 as on the CPU (one `skinning` launch a frame); the mesh rasterizer builds
 under `_build/` and draws.
@@ -242,6 +244,34 @@ def test_skinning_autograd_on_the_card_runs_the_backward_kernel(cuda):
     ra, rv = torch.autograd.grad(
         skinning_reference(w, tfms, vp), (tfms, vp), g
     )
+    _backward_close(ga, ra)
+    _backward_close(gv, rv)
+
+
+# the SMPL model axis's vertex shards (chip_smoke.py phase 4n): 6890 over 2
+# (3445, odd) at the training batch and smplcam_head's, 6890 over 4 (1723
+# and 1722), and the 2 x 2 grid's V = 128 over 2 at 4 rows
+SHARD_SHAPES = [(64, 3445), (2, 3445), (64, 1723), (64, 1722), (4, 64)]
+
+
+@pytest.mark.parametrize("batch,num_verts", SHARD_SHAPES)
+def test_skinning_op_and_backward_on_a_shard_match_plain(cuda, batch, num_verts):
+    """`skinning` and, through autograd, `skinning_backward` at a vertex
+    shard's shapes: one launch each, the forward within ATOL and both
+    gradients within the backward's bar of the plain version."""
+    w, tfms, vp = _inputs(batch, num_verts, seed=7 * batch + num_verts, device=cuda)
+    tfms.requires_grad_(True)
+    vp.requires_grad_(True)
+    g = torch.from_numpy(np.random.RandomState(num_verts).randn(batch, num_verts, 3)
+                         .astype(np.float32)).to(cuda)
+    fwd, bwd = skinning.launches, skinning_backward.launches
+    out = skinning(w, tfms, vp)
+    ga, gv = torch.autograd.grad(out, (tfms, vp), g)
+    torch.cuda.synchronize()
+    assert (skinning.launches, skinning_backward.launches) == (fwd + 1, bwd + 1)
+    ref = skinning_reference(w, tfms, vp)
+    torch.testing.assert_close(out.detach(), ref.detach(), rtol=0, atol=ATOL)
+    ra, rv = torch.autograd.grad(ref, (tfms, vp), g)
     _backward_close(ga, ra)
     _backward_close(gv, rv)
 

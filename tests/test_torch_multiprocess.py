@@ -145,9 +145,17 @@ def test_train_step_with_uneven_masks_matches_one_process(pair, single):
     first step moves such an element by the learning rate in the sign that
     fp32 noise gives it); BN's running statistics within 1e-4 relative."""
     ranks, ref = pair["step"], single["step"]
-    np.testing.assert_array_equal(np.concatenate([r["cond_mask"] for r in ranks]),
-                                  ref["cond_mask"])
     assert ranks[0]["cond_mask"].sum() == 3 and ranks[1]["cond_mask"].sum() == 0
+    check_step_matches(ranks, ranks, ref)
+
+
+def check_step_matches(ranks: list[dict], shards: list[dict], ref: dict) -> None:
+    """`ranks`' train step (every rank's npz; `shards` one rank of each
+    data index, in order) against one process's `ref`, at the bars of
+    test_train_step_with_uneven_masks_matches_one_process; every rank
+    holds the same metrics, gradients and weights."""
+    np.testing.assert_array_equal(np.concatenate([r["cond_mask"] for r in shards]),
+                                  ref["cond_mask"])
     for key, value in ref.items():
         if key == "cond_mask":
             continue

@@ -2,7 +2,7 @@
 (driven by tests/test_torch_multiprocess.py).
 
     python tests/torch_mp_worker.py --world 2 --rank 0 --init /tmp/x/init \\
-        --outdir /tmp/x --data_dir data
+        --outdir /tmp/x --data_dir data [--model 1,2] [--cases bn,step,fit]
 
 Each case below is a function of the rows it is given, so the test runs the
 same function in its own process (one process, every row) and compares:
@@ -16,9 +16,16 @@ same function in its own process (one process, every row) and compares:
     unevenly across two shards, with the CLIFF head's dropout live;
   * `fit_case`: `Trainer.fit` of tiny_smoke on the repo's smoke set (batch
     8, one epoch, no augmentation, GT_POSE_COND at 0.5), then `run_eval`
-    of its weights on the smoke test set.
+    of its weights on the smoke test set;
+  * `smpl_case`: `smpl_49` of a synthetic SMPL (V = 128 and 131, an
+    uneven split) on the SMPL "model" axis, and the gradients of the
+    shape and the rotations of a weighted sum of its vertices and joints.
 
-Each rank writes `<case>_rank<r>.npz` (and rank 0 the fit's `fit.pt`, its
+`--model` lists the model axis's sizes to run the cases at, in turn
+(`distributed.form_grid`; the SMPL sharded over each model group by
+`mesh.shard_smpl_params`, each data index holding its rows of the global
+batch). Each rank writes `<case>_rank<r>.npz` at model size 1 and
+`<case>_m<size>_rank<r>.npz` otherwise (and rank 0 the fit's `fit.pt`, its
 weights after the fit). Imports only the port.
 """
 
@@ -76,6 +83,50 @@ def bn_case(rows: slice, dtype=torch.float32) -> dict[str, np.ndarray]:
     return res
 
 
+SMPL_ROWS = 4
+SMPL_VERTS = (128, 131)
+
+
+def smpl_inputs(num_verts: int) -> dict[str, np.ndarray]:
+    """The global rows of `smpl_case`: shapes, rotations and the weights of
+    the summed vertices and joints."""
+    from poco_tpu_torch.ops.rotation import axis_angle_to_rotmat
+
+    rng = np.random.RandomState(num_verts)
+    aa = torch.from_numpy((0.4 * rng.randn(SMPL_ROWS * 24, 3)).astype(np.float32))
+    return {
+        "betas": rng.randn(SMPL_ROWS, 10).astype(np.float32),
+        "rotmats": axis_angle_to_rotmat(aa).reshape(SMPL_ROWS, 24, 3, 3).numpy(),
+        "w_verts": rng.randn(SMPL_ROWS, num_verts, 3).astype(np.float32),
+        "w_joints": rng.randn(SMPL_ROWS, 49, 3).astype(np.float32),
+    }
+
+
+def smpl_case(rows: slice) -> dict[str, np.ndarray]:
+    """For each V of SMPL_VERTS: this process's rows of `smpl_49` on its
+    shard of the synthetic SMPL (seed 0), and the gradients of betas and
+    the rotations of sum(w_verts * verts) + sum(w_joints * joints)."""
+    from poco_tpu_torch.parallel.mesh import shard_smpl_params
+    from poco_tpu_torch.smpl.assets import synthetic_smpl_model
+    from poco_tpu_torch.smpl.model import smpl_49
+
+    res = {}
+    for num_verts in SMPL_VERTS:
+        smpl = shard_smpl_params(synthetic_smpl_model(num_verts=num_verts, device="cpu"))
+        x = {k: torch.from_numpy(v[rows]) for k, v in smpl_inputs(num_verts).items()}
+        betas = x["betas"].requires_grad_(True)
+        rotmats = x["rotmats"].requires_grad_(True)
+        verts, joints = smpl_49(smpl, betas, rotmats)
+        ((verts * x["w_verts"]).sum() + (joints * x["w_joints"]).sum()).backward()
+        res[f"{num_verts}/verts"] = verts.detach().numpy()
+        res[f"{num_verts}/joints"] = joints.detach().numpy()
+        res[f"{num_verts}/grad_betas"] = betas.grad.numpy()
+        res[f"{num_verts}/grad_rotmats"] = rotmats.grad.numpy()
+        if smpl.shard is not None:
+            res[f"{num_verts}/shard"] = np.asarray([smpl.shard.lo, smpl.shard.hi])
+    return res
+
+
 def tiny_hparams(logdir: str, data_dir: str):
     from poco_tpu_torch.config import update_hparams
 
@@ -113,17 +164,20 @@ def step_batch() -> dict:
 
 
 def step_case(rows: slice, logdir: str, data_dir: str) -> dict[str, np.ndarray]:
+    """One train step of tiny-cliff on `rows` of the global batch (its SMPL
+    sharded over the model group, if the grid has one)."""
+    from poco_tpu_torch.parallel.mesh import shard_smpl_params
     from poco_tpu_torch.smpl.assets import synthetic_smpl_model
     from poco_tpu_torch.train.trainer import Trainer
 
     h = tiny_hparams(logdir, data_dir)
     h.POCO.GT_POSE_COND_DS = "h36m"
     h.POCO.GT_POSE_COND_RATIO = 0.75   # h36m rows 0, 2, 3 of 0, 2, 3, 6: all in shard 0
-    trainer = Trainer(h, synthetic_smpl_model(device="cpu"), train_dataset_fn=None,
-                      device="cpu")
+    trainer = Trainer(h, shard_smpl_params(synthetic_smpl_model(device="cpu")),
+                      train_dataset_fn=None, device="cpu")
     host = {k: v[rows] for k, v in step_batch().items()}
     host["dataset_name"] = STEP_NAMES[rows]
-    if dist.process_count() > 1:
+    if dist.data_count() > 1:
         host["_global_row_names"] = list(STEP_NAMES)
     batch = trainer._device_batch(host)
     metrics = trainer.train_step(batch, trainer.smpl)
@@ -192,20 +246,36 @@ def main() -> None:
     ap.add_argument("--init", required=True, help="file of the file:// rendezvous")
     ap.add_argument("--outdir", required=True)
     ap.add_argument("--data_dir", required=True)
+    ap.add_argument("--model", default="1", help="the model axis's sizes, in turn")
+    ap.add_argument("--cases", default="bn,step,fit")
     args = ap.parse_args()
 
     torch.set_num_threads(1)
     dist.maybe_initialize(coordinator=f"file://{args.init}", num_processes=args.world,
                           process_id=args.rank, backend="gloo")
-    lo, hi = dist.local_shard_bounds(4)
-    np.savez(os.path.join(args.outdir, f"bn_rank{args.rank}.npz"), **bn_case(slice(lo, hi)))
-    lo, hi = dist.local_shard_bounds(GLOBAL_BATCH)
-    np.savez(os.path.join(args.outdir, f"step_rank{args.rank}.npz"),
-             **step_case(slice(lo, hi), os.path.join(args.outdir, "step"), args.data_dir))
-    res, state = fit_case(os.path.join(args.outdir, "fit"), args.data_dir)
-    np.savez(os.path.join(args.outdir, f"fit_rank{args.rank}.npz"), **res)
-    if dist.is_main_process():
-        torch.save(state, os.path.join(args.outdir, "fit.pt"))
+    cases = args.cases.split(",")
+    for model in (int(m) for m in args.model.split(",")):
+        dist.form_grid(model)
+        tag = "" if model == 1 else f"_m{model}"
+
+        def save(case, res):
+            np.savez(os.path.join(args.outdir, f"{case}{tag}_rank{args.rank}.npz"), **res)
+
+        if "bn" in cases:
+            lo, hi = dist.local_shard_bounds(4)
+            save("bn", bn_case(slice(lo, hi)))
+        if "smpl" in cases:
+            lo, hi = dist.local_shard_bounds(SMPL_ROWS)
+            save("smpl", smpl_case(slice(lo, hi)))
+        if "step" in cases:
+            lo, hi = dist.local_shard_bounds(GLOBAL_BATCH)
+            save("step", step_case(slice(lo, hi), os.path.join(args.outdir, f"step{tag}"),
+                                   args.data_dir))
+        if "fit" in cases:
+            res, state = fit_case(os.path.join(args.outdir, f"fit{tag}"), args.data_dir)
+            save("fit", res)
+            if dist.is_main_process():
+                torch.save(state, os.path.join(args.outdir, f"fit{tag}.pt"))
     dist.barrier()
     dist.shutdown()
 
