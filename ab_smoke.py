@@ -14,7 +14,8 @@ built into its own `_build/`): phases 1 (environment), 2 (build) and 4
 the chosen ones in this order: `train` (4f), `serving` (4h), `dist` (4i,
 in a checkout that has it, and 4n, the model axis, where it has that),
 `demo` (4j, likewise, and 4o), `crop` (4p, in a checkout that has it),
-`losses` (4k-4m, on 4f's synthetic samples, in a checkout that has them). Every line a run prints is printed with
+`losses` (4k-4m, on 4f's synthetic samples, in a checkout that has them),
+`tools` (4q, likewise). Every line a run prints is printed with
 `[i dir]` before it. Exits 1 if any run failed, after all have run.
 """
 
@@ -25,7 +26,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = ("train", "serving", "dist", "demo", "crop", "losses")
+PHASES = ("train", "serving", "dist", "demo", "crop", "losses", "tools")
 
 RUN = """
 import sys
@@ -51,6 +52,8 @@ if "losses" in phases:
     cs.phase_render_losses(ctx, cs.phase_pare(ctx, seed), train, card)
     cs.phase_train_images(ctx, train, card)
     cs.phase_launchers(card)
+if "tools" in phases:
+    cs.phase_tools(ctx, card)
 """
 
 

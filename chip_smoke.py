@@ -118,7 +118,7 @@ Phases, each of which raises (exit code 1) on failure:
      with a lowered `conf_threshold` (random weights score near 0.25),
      images/s; (b) `cli.demo --mode folder` with POCO-CLIFF (phase 4's
      weights through --ckpt, its V=6890 SMPL through --smpl_dir) over the
-     48 smoke JPEGs and the full-HD frame, `--detector refine --sideview
+     first 16 smoke JPEGs and the full-HD frame, `--detector refine --sideview
      --save_obj` then `--detector yolo`: one PNG an image of its width
      (twice with the side view), `skinning` twice a frame (refine) or
      once a frame with boxes (yolo), the mesh drawn by a fixed in-frame
@@ -188,6 +188,29 @@ Phases, each of which raises (exit code 1) on failure:
   4p. `crop_and_resize_mxu` against the gather on the full-HD frame at 8
      and 128 boxes: the largest difference (within 1e-2 grey levels) and
      both times;
+  4q. the tools (`python -m poco_tpu_torch.cli.<tool>`), at full width:
+     (a) `convergence_bench --which cliff` for 20 epochs (the tool's 150
+     cut) on a fresh synthetic `conv` set, in a process of its own: every
+     logged loss term finite, val MPJPE at epoch 19 (and the best model's)
+     within the tool's 120 mm, the 3D joint loss lower over epochs 10-19
+     than over 0-9 (val MPJPE at 19 against 9, the correlation and the
+     tool's pass printed, not gated), and one epoch of the recipe in this
+     process through `cli.train.main`: 2 `skinning` + 1 `skinning_backward`
+     a step; (b) `calibration_decay` over (a)'s run: each row's MPJPE
+     within 1e-3 mm of the trainer's validation of that epoch; (c)
+     `camera_bringup` on (a)'s best model for 2 epochs (the tool's 40
+     cut): every tensor but `head.deccam`'s bit-identical,
+     `skinning_backward` once a step, the 2D error of its output below its
+     input's; (d) `detector_quality` on (a)'s test set with (c)'s
+     checkpoint: full_frame's mean IoU its closed form; (e) `golden_gate`
+     on a reference-format checkpoint of phase 4's POCO-CLIFF, gendered
+     synthetic SMPL files and the repo's smoke set: the card within
+     METERS_TOL of the same gate on the CPU, and a failed verdict with a
+     reference 1 mm off; (f) `profile_model --precision 32`, inference at
+     128 and a train step at 64, 3 steps each: the trace holds the
+     skinning kernels (and the train step's TRAIN_STAGES ranges); then
+     both kernels against their plain versions at the phase's shapes
+     (V=432, the recipe's SMPL; V=512, the gate's);
   5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
      (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
      kernel and, in turns, with the plain skinning in its place (the
@@ -207,10 +230,10 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4o, in
+The yardsticks never launch on the main paths (checked in 4-4q, in
 every rank). The line before the last is the kernels' JSON record
 (`skinning`, `skinning_simt`, `skinning_backward`,
-`skinning_backward_simt`, launches summed over phases 4-4o and the
+`skinning_backward_simt`, launches summed over phases 4-4q and the
 ranks of 4i and 4n); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -1152,8 +1175,9 @@ def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
 
     # samples/s at batch 64 with flip-TTA off and on, in turns; and at
     # batch 128 without it, the serving phases' batch, for comparison
-    runs = ((EVAL_BATCH, False), (EVAL_BATCH, True), (EVAL_BATCH, True), (EVAL_BATCH, False),
-            (2 * EVAL_BATCH, False)) * 3
+    # (4 passes each at 64, 3 at 128: 6, 6 and 3 before 4q joined the run)
+    runs = ((EVAL_BATCH, False), (EVAL_BATCH, True), (EVAL_BATCH, True),
+            (EVAL_BATCH, False)) * 2 + ((2 * EVAL_BATCH, False),) * 3
     times = {run: [] for run in runs}
     for batch_size, flip in runs:
         torch.cuda.synchronize()
@@ -1781,6 +1805,286 @@ def phase_launchers(card: str) -> None:
         for d in made:
             shutil.rmtree(d, ignore_errors=True)
     print(f"phase 4m: {time.perf_counter() - phase_start:.3f} s")
+
+
+# -- the tools (phase 4q) ------------------------------------------------------
+
+TOOLS_EPOCHS = 20         # 4q's convergence budget (the tool's 150 cut): validations at 9, 19
+TOOLS_MPJPE_MM = 120.0    # the tool's own --mpjpe_thresh, held at epoch 19
+TOOLS_STEPS = 10          # steps an epoch: 500 samples at configs/convergence.yaml's batch of 50
+TOOLS_LOG_INTERVAL = 10   # the recipe's LOG_SAVE_INTERVAL: the steps metrics.jsonl logs
+DECAY_TOL_MM = 1e-3       # a calibration-decay row's MPJPE against the trainer's validation
+CAMERA_EPOCHS = 2         # cli.camera_bringup's --epochs (the tool's 40 cut)
+CAMERA_EVAL_BATCHES = 2   # its evaluations: the 100 test samples at 50
+IOU_TOL = 5e-5            # full_frame's mean IoU (rounded to 4 places) against its closed form
+PROFILE_RUNS = (("infer", 128), ("train", 64))   # cli.profile_model's mode and batch
+PROFILE_STEPS = 3
+GATE_SMPL_VERTS = 512     # the golden gate's synthetic SMPL files (tests/test_golden.py's)
+TOOLS_SKIN_SHAPES = ((50, 432), (32, 432), (16, 512), (8, 432), (4, 432), (2, 432), (1, 432))
+
+
+def tool_cli(module: str, args: list[str], check_rc=(0,)) -> tuple[int, list[str]]:
+    """`python -m poco_tpu_torch.cli.<module> args` from the repo root: its
+    exit code and its standard output's lines (its errors pass through)."""
+    proc = subprocess.run([sys.executable, "-m", f"poco_tpu_torch.cli.{module}", *args],
+                          cwd=REPO, stdout=subprocess.PIPE, text=True)
+    check(proc.returncode in check_rc, f"cli.{module} exited {proc.returncode}:\n"
+                                       f"{proc.stdout[-3000:]}")
+    return proc.returncode, proc.stdout.strip().splitlines()
+
+
+def logged_steps(logdir: Path) -> tuple[list[dict], list[str]]:
+    """The train-step records of metrics.jsonl, and the loss terms among
+    them that are not finite."""
+    with open(logdir / "metrics.jsonl") as f:
+        steps = [rec for rec in map(json.loads, f) if "event" not in rec]
+    bad = [f"epoch {rec['epoch']} step {rec['step']} {k}" for rec in steps
+           for k, v in rec.items() if k.startswith("loss/") and not math.isfinite(v)]
+    return steps, bad
+
+
+def write_gate_smpl(path: Path) -> None:
+    """Neutral, male and female synthetic SMPLs in the distribution layout,
+    the three distinct (tests/test_golden.py:177-194)."""
+    from poco_tpu_torch.constants import SMPL_PARENTS
+
+    path.mkdir(parents=True, exist_ok=True)
+    for gender, seed in (("NEUTRAL", 0), ("MALE", 1), ("FEMALE", 2)):
+        p = synthetic_smpl_model(num_verts=GATE_SMPL_VERTS, seed=seed, device="cpu")
+        np.savez(path / f"SMPL_{gender}.npz", v_template=p.v_template.numpy(),
+                 shapedirs=p.shapedirs.numpy(), posedirs=p.posedirs.numpy(),
+                 J_regressor=p.j_regressor.numpy(), weights=p.lbs_weights.numpy(),
+                 kintree_table=np.stack([np.asarray(SMPL_PARENTS, np.int64),
+                                         np.arange(24, dtype=np.int64)]),
+                 f=p.faces.numpy())
+
+
+def full_frame_iou(gts: list[np.ndarray], size: float) -> tuple[float, int]:
+    """full_frame's mean IoU in closed form: its box is the frame's centred
+    square of 0.95 x the longer side; a GT box inside it scores its area
+    over the square's. Returns the mean and how many boxes lie inside."""
+    boxes = np.concatenate([g for g in gts if len(g)]).astype(np.float64)
+    side = 0.95 * size
+    lo, hi = size / 2.0 - side / 2.0, size / 2.0 + side / 2.0
+    g_lo, g_hi = boxes[:, :2] - boxes[:, 2:] / 2.0, boxes[:, :2] + boxes[:, 2:] / 2.0
+    inter = np.prod(np.clip(np.minimum(g_hi, hi) - np.maximum(g_lo, lo), 0.0, None), axis=1)
+    area = boxes[:, 2] * boxes[:, 3]
+    inside = int(((g_lo >= lo) & (g_hi <= hi)).all(axis=1).sum())
+    return float(np.mean(inter / (area + side * side - inter))), inside
+
+
+def phase_tools(ctx: dict, card: str) -> dict[str, Counter]:
+    """Phase 4q: the JAX package's training-science and gate tools on the
+    port, at full width: (a) `cli.convergence_bench --which cliff` for
+    TOOLS_EPOCHS epochs on a fresh `conv` set (val MPJPE at epoch 19 within
+    the tool's 120 mm, the 3D joint loss falling across the freeze
+    boundary, every logged loss term finite; epoch 19's MPJPE against
+    epoch 9's and the correlation recorded), and one epoch of the same
+    recipe in this process through `cli.train.main` for the launches a
+    step; (b) `cli.calibration_decay` over (a)'s run, each row's MPJPE the
+    trainer's validation of that epoch; (c) `cli.camera_bringup` on (a)'s
+    best model (every other parameter and BN statistic bit-identical, the
+    backward kernel launched, the 2D error of the output below the
+    input's); (d) `cli.detector_quality` on (a)'s test set with (c)'s
+    checkpoint (full_frame's mean IoU its closed form); (e)
+    `cli.golden_gate` on a reference-format checkpoint of phase 4's
+    POCO-CLIFF, gendered synthetic SMPL files and the smoke set: on the
+    card against its own CPU result within METERS_TOL, and failing with a
+    reference 1 mm off; (f) `cli.profile_model --precision 32`, inference
+    at 128 and a train step at 64, 3 steps each: the Chrome trace holds the
+    skinning kernels (and the train step's TRAIN_STAGES ranges)."""
+    import shutil
+    import tempfile
+
+    from poco_tpu_torch.cli import calibration_decay, camera_bringup, convergence_bench
+    from poco_tpu_torch.cli import detector_quality, golden_gate, profile_model
+
+    print(f"== 4q. the tools: convergence ({TOOLS_EPOCHS} epochs), calibration decay, camera "
+          "bring-up, detector quality, golden gate, profile")
+    phase_start = time.perf_counter()
+    counts = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        data, work = tmp / "data", tmp / "work"
+        conv_cfg = str(REPO / "configs" / "convergence.yaml")
+
+        # (a) the convergence bench, in a process of its own as a user runs it
+        start = time.perf_counter()
+        rc, lines = tool_cli("convergence_bench", [
+            "--which", "cliff", "--epochs", str(TOOLS_EPOCHS), "--root", str(data),
+            "--work_dir", str(work), "--fresh"], check_rc=(0, 1))
+        conv = json.loads(lines[-1])
+        conv_s = time.perf_counter() - start
+        print(f"convergence_bench: {lines[-1]}")
+        logdir = Path(conv["logdir"])
+        steps, bad = logged_steps(logdir)
+        curve = {c["epoch"]: c["mpjpe"] for c in conv["curve"]}
+        # the 3D joint loss, the term that drives MPJPE, before and after the
+        # freeze boundary at epoch 10 (one logged step an epoch)
+        k3d = [statistics.fmean(r["loss/loss_keypoints_3d"] for r in steps
+                                if lo <= r["epoch"] < lo + 10) for lo in (0, 10)]
+        print(f"convergence: {TOOLS_EPOCHS} epochs in {conv_s:.1f} s (data, training, two "
+              f"evaluations), val MPJPE by epoch {curve} mm (epoch 19 below epoch 9: "
+              f"{curve.get(19, math.inf) < curve.get(9, -math.inf)}; recorded, see PERF.md §6 "
+              f"PR 13), uncert_pose_corr {conv['uncert_pose_corr']} (recorded, not gated at "
+              f"{TOOLS_EPOCHS} epochs), the tool's pass {conv['pass']} (exit {rc}); the 3D joint "
+              f"loss over epochs 0-9 {k3d[0]:.4f}, over 10-19 {k3d[1]:.4f}; {len(steps)} logged "
+              f"steps, every loss term finite: {not bad} on {card}")
+        check(rc == (0 if conv["pass"] else 1), f"convergence_bench exited {rc}, pass "
+                                                f"{conv['pass']}")
+        check(not bad, f"non-finite loss terms: {bad[:5]}")
+        # LOG_SAVE_INTERVAL 10 in the recipe: one logged step an epoch
+        check(len(steps) == TOOLS_EPOCHS * math.ceil(TOOLS_STEPS / TOOLS_LOG_INTERVAL),
+              f"{len(steps)} logged steps")
+        check(sorted(curve) == [9, 19], f"validations at epochs {sorted(curve)}")
+        check(curve[19] <= TOOLS_MPJPE_MM and conv["val_mpjpe_mm"] <= TOOLS_MPJPE_MM,
+              f"val MPJPE {curve} mm, best model {conv['val_mpjpe_mm']}: past {TOOLS_MPJPE_MM}")
+        check(k3d[1] < k3d[0], f"the 3D joint loss did not fall: {k3d}")
+
+        # the same recipe for one epoch in this process: the launches a step
+        reset_counts()
+        cli_train.main(["--cfg", conv_cfg, "--data_dir", str(data), "--max_epochs", "1",
+                        "--logdir", str(tmp / "counted")])
+        counts["tools_convergence"] = read_counts("convergence epoch")
+        print(f"convergence recipe, one epoch in-process: launches "
+              f"{dict(counts['tools_convergence'])} over {TOOLS_STEPS} steps "
+              f"({time.perf_counter() - phase_start:.1f} s into 4q)")
+        check((counts["tools_convergence"]["skinning"],
+               counts["tools_convergence"]["skinning_backward"])
+              == tuple(TOOLS_STEPS * n for n in TRAIN_LAUNCHES), "convergence: launches a step")
+        shutil.rmtree(tmp / "counted")
+
+        # (b) calibration decay over (a)'s epoch checkpoints
+        decay = calibration_decay.main(["--logdir", str(logdir), "--root", str(data)])
+        with open(logdir / "val_accuracy.json") as f:
+            val = {rec["epoch"]: rec["mpjpe"] for rec in json.load(f)}
+        diffs = {}
+        for row in decay["rows"]:
+            with open(logdir / f"calibration_decay_{row['ckpt']}.json") as f:
+                mpjpe = json.load(f)["summary"]["mpjpe"]
+            diffs[row["ckpt"]] = abs(mpjpe - val[int(row["ckpt"].split("_")[1])])
+        print(f"calibration_decay: rows {decay['rows']}, homogenization_confirmed "
+              f"{decay['homogenization_confirmed']}; |cli.eval - the trainer's validation| "
+              f"{diffs} mm (tolerance {DECAY_TOL_MM}; {time.perf_counter() - phase_start:.1f} s "
+              "into 4q)")
+        check([r["ckpt"] for r in decay["rows"]] == ["epoch_009", "epoch_019"],
+              f"calibration decay rows {decay['rows']}")
+        check(max(diffs.values()) <= DECAY_TOL_MM, f"calibration decay vs validation {diffs}")
+
+        # (c) camera bring-up on (a)'s best model, in this process
+        reset_counts()
+        start = time.perf_counter()
+        cam = camera_bringup.main([
+            "--ckpt", str(logdir), "--cfg", str(REPO / "configs" / "convergence_ft2d.yaml"),
+            "--data_dir", str(data), "--epochs", str(CAMERA_EPOCHS)])
+        cam_s = time.perf_counter() - start
+        counts["tools_camera"] = read_counts("camera bring-up")
+        base = torch.load(logdir / "best_model.pt", map_location="cpu", weights_only=False)
+        tuned = torch.load(cam["out"], map_location="cpu", weights_only=False)["model"]
+        changed = sorted(k for k in base["model"] if not torch.equal(base["model"][k], tuned[k]))
+        cam_steps = CAMERA_EPOCHS * TOOLS_STEPS
+        evals = 3 * CAMERA_EVAL_BATCHES * (1 + EVAL_LAUNCHES[False])
+        print(f"camera_bringup: {json.dumps(cam)} in {cam_s:.1f} s; tensors that changed "
+              f"{changed}; launches {dict(counts['tools_camera'])} ({cam_steps} steps of 2 + 1, "
+              f"{evals} in its 3 evaluations) on {card}")
+        check(set(changed) == {"head.deccam.weight", "head.deccam.bias"},
+              f"camera bring-up changed {changed}")
+        check(set(tuned) == set(base["model"]), "camera bring-up: another set of tensors")
+        check(counts["tools_camera"]["skinning_backward"] == cam_steps
+              and counts["tools_camera"]["skinning"] == 2 * cam_steps + evals,
+              f"camera bring-up launches {dict(counts['tools_camera'])}")
+        # the tool's output against its input: the zeroed decoder's mean
+        # camera and the SGD steps after it (the steps alone move it by
+        # hundredths of a pixel at the tool's lr of 1e-5: PERF.md §6 PR 13)
+        check(cam["px2d_after"] < cam["px2d_raw_ckpt"],
+              f"the 2D error did not fall: {cam['px2d_raw_ckpt']} -> {cam['px2d_after']} px")
+
+        # (d) detector quality with (c)'s checkpoint on (a)'s test set
+        reset_counts()
+        gt_npz = data / "dataset_extras" / "conv_test.npz"
+        start = time.perf_counter()
+        dq = detector_quality.main(["--gt", str(gt_npz), "--img_root", str(data),
+                                    "--cfg", conv_cfg, "--ckpt", cam["out"]])
+        dq_s = time.perf_counter() - start
+        counts["tools_detectors"] = read_counts("detector quality")
+        _, gts = detector_quality.gt_boxes_from_npz(str(gt_npz))
+        closed, inside = full_frame_iou(gts[:100], convergence_bench.IMG)
+        got = dq["detectors"]["full_frame"]["mean_iou"]
+        print(f"detector_quality: {json.dumps(dq)} in {dq_s:.1f} s; full_frame mean IoU {got} "
+              f"against its closed form {closed:.6f} ({inside} of {sum(map(len, gts[:100]))} GT "
+              f"boxes inside the frame's box); launches {dict(counts['tools_detectors'])}")
+        check(abs(got - closed) <= IOU_TOL, f"full_frame mean IoU {got} != {closed}")
+        check(dq["detectors"]["hog"] == dq["detectors"]["full_frame"], "hog is not full_frame")
+
+        # (e) the golden gate: the card against its own CPU result
+        gate_dir = tmp / "gate"
+        write_gate_smpl(gate_dir / "smpl")
+        ref_ckpt = gate_dir / "ref_poco_cliff.pt"
+        torch.save({"model": {k: v.cpu() for k, v in ctx["model"].state_dict().items()}},
+                   ref_ckpt)
+        gate_args = ["--smpl_dir", str(gate_dir / "smpl"), "--torch_ckpt", str(ref_ckpt),
+                     "--data_dir", str(REPO / "data"), "--dataset", "smoke",
+                     "--cfg", str(REPO / "configs" / "poco_cliff.yaml")]
+        cpu = golden_gate.main(gate_args + ["--device", "cpu", "--ref_mpjpe", "0"])
+        reset_counts()
+        gate = golden_gate.main(gate_args + ["--ref_mpjpe", str(cpu["mpjpe_port_mm"])])
+        counts["tools_gate"] = read_counts("golden gate")
+        # the CLI exits with 1 - pass (its exit code is held on the CPU,
+        # tests/test_torch_tools.py)
+        off = golden_gate.main(gate_args + ["--ref_mpjpe", str(cpu["mpjpe_port_mm"] + 1.0)])
+        print(f"golden_gate: CPU {cpu['mpjpe_port_mm']} mm; card {json.dumps(gate)}; a reference "
+              f"1 mm off: {json.dumps(off)}; launches {dict(counts['tools_gate'])} "
+              f"on {card} ({time.perf_counter() - phase_start:.1f} s into 4q)")
+        check(gate["pass"] and gate["delta_mm"] <= METERS_TOL * 1e3,
+              f"golden gate: card {gate['mpjpe_port_mm']} vs CPU {cpu['mpjpe_port_mm']} mm")
+        check(off["pass"] is False, "the golden gate passed a reference 1 mm off")
+        check(counts["tools_gate"]["skinning"] == EVAL_LAUNCHES[False],
+              f"golden gate launches {dict(counts['tools_gate'])}: one batch of 16")
+
+        # (f) the profile of the inference and train steps
+        for mode, batch in PROFILE_RUNS:
+            reset_counts()
+            start = time.perf_counter()
+            path = profile_model.main(["--mode", mode, "--batch", str(batch), "--steps",
+                                       str(PROFILE_STEPS), "--precision", "32",
+                                       "--out", str(tmp / "profile")])
+            seconds = time.perf_counter() - start
+            key = f"tools_profile_{mode}"
+            counts[key] = read_counts(f"profile {mode}")
+            size = os.path.getsize(path)
+            with open(path) as f:
+                names = Counter(e.get("name", "") for e in json.load(f)["traceEvents"])
+            kernels = {k: sum(n for name, n in names.items() if any(m in name for m in marks))
+                       for k, marks in SKIN_KERNELS.items()}
+            stages = {s: names[s] for s in TRAIN_STAGES}
+            print(f"profile_model {mode} at {batch}: {seconds:.1f} s, trace "
+                  f"{size / 2**20:.1f} MiB, skinning kernels {kernels}, ranges {stages}, "
+                  f"launches {dict(counts[key])}")
+            runs = PROFILE_STEPS + 1   # the warm-up outside the trace
+            per_step = TRAIN_LAUNCHES if mode == "train" else (1, 0)
+            check((counts[key]["skinning"], counts[key]["skinning_backward"])
+                  == tuple(runs * n for n in per_step), f"profile {mode} launches")
+            check(kernels["skinning"] >= PROFILE_STEPS * per_step[0]
+                  and kernels["skinning_backward"] >= PROFILE_STEPS * per_step[1],
+                  f"profile {mode}: the trace lacks the skinning kernels {kernels}")
+            check(all(stages.values()) == (mode == "train"), f"profile {mode}: ranges {stages}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the kernel at this phase's shapes (the synthetic SMPL of the
+    # convergence recipe has 432 vertices, the gate's files 512)
+    for batch, num_verts in TOOLS_SKIN_SHAPES:
+        args_ = skinning_inputs(batch, num_verts, seed=batch + num_verts)
+        err = float((skinning(*args_) - skinning_reference(*args_)).abs().max())
+        grads = skinning_backward(*args_, backward_grad(batch, num_verts, seed=batch))
+        refs = skinning_backward_reference(*args_, backward_grad(batch, num_verts, seed=batch))
+        bwd = max(float((g - r).abs().max() / (r.abs().max() * BACKWARD_RTOL + BACKWARD_ATOL))
+                  for g, r in zip(grads, refs))
+        print(f"skinning v2 B={batch} V={num_verts} (a 4q shape): max_abs_err {err:.3e} "
+              f"(tolerance {SKIN_TOL}); skinning_backward at {bwd:.3f} of its tolerance")
+        check(err <= SKIN_TOL and bwd <= 1.0, f"skinning disagrees at B={batch} V={num_verts}")
+    print(f"phase 4q: {time.perf_counter() - phase_start:.3f} s")
+    return counts
 
 
 SMOKE_DIR = REPO / "data" / "dataset_folders" / "smoke"
@@ -2992,6 +3296,7 @@ YOLO_QUANTILE = 0.999     # the lowered threshold: this quantile of the first ba
 YOLO_TOPK = 8             # rows an image that reach NMS in the folder pass (200 by default)
 OVERLAY_SHARE = 0.01      # least share of a frame a fixed in-frame camera's mesh must change
 STREAM_FRAMES = 8         # frames of the webcam-replay stream, each run
+DEMO_SMOKE_IMAGES = 16    # the smoke JPEGs of 4j's folder passes (48 before 4q joined the run)
 # cv2.imwrite (OpenCV 5.0.0) at its default quality 95 on tests/data/torch_fullhd.jpg
 # as cv2 decodes it: the re-encoded file's PSNR (tests/test_torch_demo.py checks it)
 FULLHD_CV2_PSNR = 45.0148
@@ -3191,7 +3496,7 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     tmp = Path(tmp_dir.name)
     folder = tmp / "images"
     folder.mkdir()
-    for p in [*SMOKE_DIR.glob("*.jpg"), FULLHD_JPEG]:
+    for p in [*sorted(SMOKE_DIR.glob("*.jpg"))[:DEMO_SMOKE_IMAGES], FULLHD_JPEG]:
         shutil.copy(p, folder)
     images = images_in_folder(str(folder))   # the CLI's order
     fullhd = images.index(str(folder / FULLHD_JPEG.name))
@@ -3204,8 +3509,8 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
             "--smpl_dir", str(tmp / "smpl")]
     counts, batches = {}, {1}
 
-    print(f"-- 4j (b) cli.demo --mode folder over {len(images)} JPEGs (the smoke set and "
-          f"{FULLHD_JPEG.name}), POCO-CLIFF at full width, SMPL V=6890")
+    print(f"-- 4j (b) cli.demo --mode folder over {len(images)} JPEGs ({DEMO_SMOKE_IMAGES} of "
+          f"the smoke set and {FULLHD_JPEG.name}), POCO-CLIFF at full width, SMPL V=6890")
     # the full-HD frame as the folder pass hands it to the writer
     from poco_tpu_torch.demo import tester as tester_module
 
@@ -3653,14 +3958,17 @@ def merged_us(spans) -> float:
     return total
 
 
+PROFILE_CALLS = 2   # profiled calls a run in phase 6 (3 before 4q joined the run: the time limit)
+
+
 def profile_request(label: str, run, card: str, stages=EVAL_STAGES) -> None:
     """Device busy and idle share, ops, the skinning kernels' share and the
     top device kernels of `run` (one request, eval step or train step),
-    over 3 calls; for the eval and train steps, their device time by
-    profiler range (`EVAL_STAGES`, `TRAIN_STAGES`)."""
+    over PROFILE_CALLS calls; for the eval and train steps, their device
+    time by profiler range (`EVAL_STAGES`, `TRAIN_STAGES`)."""
     from torch.profiler import ProfilerActivity, profile
 
-    n = 3
+    n = PROFILE_CALLS
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3756,39 +4064,66 @@ def main() -> int:
         return dist_rank(args.dist_rank, Path(args.dist_dir), args.seed)
     if args.grid_rank is not None:  # one of phase 4n (b)'s ranks
         return grid_rank(args.grid_rank, Path(args.dist_dir), args.seed)
+    run_start = time.perf_counter()
+    # The card's host sets PYTHONDONTWRITEBYTECODE and its site-packages is
+    # read-only, so every process this run starts compiled torch's sources
+    # again: one shared bytecode cache in the checkout's build directory
+    # takes an import of the port from 7.0-7.3 s to 4.6 s (PERF.md §6 PR 13).
+    os.environ["PYTHONPYCACHEPREFIX"] = str(REPO / "poco_tpu_torch" / "_build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+    def mark(label: str) -> None:
+        """Where the run stands, so that each phase's share of the time
+        limit shows."""
+        print(f"-- {label} done, {time.perf_counter() - run_start:.1f} s into the run", flush=True)
+
     card, peaks = phase_environment()
     phase_build()
     errs = phase_kernel_check()
+    mark("phases 1-3")
     ctx = phase_main_path(args.seed)
     pare = phase_pare(ctx, args.seed)
     paths = {"cliff": ctx["counts"], "pare": pare["counts"],
              "flow": phase_flow(ctx, pare, args.seed), "hmr": phase_hmr(ctx, args.seed)}
+    mark("phases 4-4d")
     evaluation = phase_eval(ctx, pare, args.seed, card)
     paths["eval"] = evaluation["counts"]
+    mark("phase 4e")
     train = phase_train(ctx, pare, args.seed, card)
     paths["train"] = train["counts"]
     paths["train_pare"] = train["pare_counts"]
+    mark("phase 4f")
     images = phase_images(ctx, train, args.seed, card)
     paths.update(images["counts"])
+    mark("phase 4g")
     paths["serving"] = phase_serving(ctx, card)
+    mark("phase 4h")
     paths.update(phase_dist(ctx, args.seed, card))
+    mark("phases 4i, 4n")
     demo_counts, demo_err = phase_demo(ctx, args.seed, card)
     paths.update(demo_counts)
     errs["v2"] = max(errs["v2"], demo_err)
     phase_crop(args.seed, card)
+    mark("phases 4j, 4o, 4p")
     paths.update(phase_render_losses(ctx, pare, train, card))
     paths["train_images"] = phase_train_images(ctx, train, card)
     phase_launchers(card)
+    mark("phases 4k-4m")
+    paths.update(phase_tools(ctx, card))
+    mark("phase 4q")
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)
     print(f"launches on the main paths: {dict(launches)}; by path "
           f"{ {path: dict(counts) for path, counts in paths.items()} }")
     phase_throughput(ctx, pare, args.reps, card)
+    mark("phase 5")
     phase_profile(ctx, pare, evaluation, train, images, card)
+    mark("phase 6")
     train["tmp"].cleanup()
     times = phase_kernel_timing(peaks)
     backward_times = phase_backward_timing(peaks)
+    mark("phases 7, 7b")
     common = {"route": "cuda", "replaces": "poco_tpu/ops/pallas_lbs.py:87", "library_ms": None}
     records = [
         {"name": "skinning", "source": "poco_tpu_torch/csrc/skinning.cu", **common,

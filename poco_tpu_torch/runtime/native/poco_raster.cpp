@@ -13,8 +13,9 @@
 // `poco_label_triangles` paints integer triangles in the caller's order
 // (the painter's algorithm of the GT part labels), each as cv2.fillPoly
 // fills it. `poco_wireframe` and `poco_circles_aa` draw the demo's
-// wireframe and keypoints as cv2 draws them, and `poco_put_glyphs` its
-// caption's glyphs (below).
+// wireframe and keypoints as cv2 draws them, `poco_circles_filled` the
+// synthetic data sets' blobs (cv2.circle, filled, LINE_8), and
+// `poco_put_glyphs` its caption's glyphs (below).
 
 #include <algorithm>
 #include <cmath>
@@ -545,6 +546,55 @@ extern "C" void poco_circles_aa(
         fill_circle_poly_aa(im, (int64_t)centers[2 * k] << XY_SHIFT,
                             (int64_t)centers[2 * k + 1] << XY_SHIFT,
                             (int64_t)radius << XY_SHIFT);
+}
+
+// OpenCV's Circle(..., fill=1): cv2.circle(img, c, r, colour, -1), LINE_8
+// and shift 0, the midpoint walk that paints four horizontal spans a step,
+// each clipped to the image's columns; a span whose row lies outside the
+// image is skipped.
+static void fill_circle8(const Rgb8& im, int cx, int cy, int radius)
+{
+    auto span = [&](int y, int x0, int x1) {
+        if ((unsigned)y >= (unsigned)im.h)
+            return;
+        x0 = std::max(x0, 0);
+        x1 = std::min(x1, im.w - 1);
+        for (int x = x0; x <= x1; ++x)
+            im.put(x, y);
+    };
+    int err = 0, dx = radius, dy = 0, plus = 1, minus = (radius << 1) - 1;
+    while (dx >= dy) {
+        const int y11 = cy - dy, y12 = cy + dy, y21 = cy - dx, y22 = cy + dx;
+        const int x11 = cx - dx, x12 = cx + dx, x21 = cx - dy, x22 = cx + dy;
+        // OpenCV draws nothing of a step whose wide span misses the image
+        if (x11 < im.w && x12 >= 0 && y21 < im.h && y22 >= 0) {
+            span(y11, x11, x12);
+            span(y12, x11, x12);
+            if (x21 < im.w && x22 >= 0) {
+                span(y21, x21, x22);
+                span(y22, x21, x22);
+            }
+        }
+        dy++;
+        err += plus;
+        plus += 2;
+        const int mask = (err <= 0) - 1;
+        err -= minus & mask;
+        dx += mask;
+        minus -= mask & 2;
+    }
+}
+
+extern "C" void poco_circles_filled(
+    uint8_t* img,            // (h, w, 3) uint8, drawn in place
+    int h, int w,
+    const int32_t* centers,  // (n, 2) integer pixel centres
+    int n, int radius,
+    const int32_t* rgb)      // (3,) colour, written to the channels in order
+{
+    const Rgb8 im{img, h, w, {rgb[0], rgb[1], rgb[2]}};
+    for (int k = 0; k < n; ++k)
+        fill_circle8(im, centers[2 * k], centers[2 * k + 1], radius);
 }
 
 // The caption's glyphs as OpenCV 5's putText draws its TrueType font: the

@@ -2,7 +2,8 @@
 (`native/poco_raster.cpp`; the counterpart of `poco_tpu.runtime.raster`),
 and of two of cv2's drawing calls: the wireframe (`cv2.polylines` of each
 face, LINE_AA on the float overlay) and the keypoints (`cv2.circle`,
-filled, LINE_AA), each as OpenCV's drawing.cpp draws it; `put_glyphs`
+filled, LINE_AA), each as OpenCV's drawing.cpp draws it; `circles_filled`
+the synthetic data sets' blobs (`cv2.circle`, filled, LINE_8); `put_glyphs`
 draws the caption's glyphs as OpenCV 5's putText does (`viz/text.py`).
 
 g++ builds the library at first use, never at import, into
@@ -74,6 +75,8 @@ def _load():
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
+            lib.poco_circles_filled.restype = None
+            lib.poco_circles_filled.argtypes = lib.poco_circles_aa.argtypes
             lib.poco_put_glyphs.restype = None
             lib.poco_put_glyphs.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -189,6 +192,23 @@ def circles_aa(img: np.ndarray, centers: np.ndarray, radius: int, color) -> None
     rgb = np.ascontiguousarray(color, np.int32)
     lib.poco_circles_aa(img.ctypes.data, img.shape[0], img.shape[1], c_c.ctypes.data,
                         len(c_c), int(radius), rgb.ctypes.data)
+
+
+def circles_filled(img: np.ndarray, centers: np.ndarray, radius: int, color) -> None:
+    """`cv2.circle(img, c, radius, color, -1)` (LINE_8) for each integer
+    centre, in order, in place on an (H, W, 3) uint8 image: OpenCV's
+    midpoint walk of horizontal spans, clipped to the image. `color` is
+    written to the channels in the order given."""
+    lib = _load()
+    if not img.flags.c_contiguous:
+        raise ValueError("circles_filled draws in place: the image must be C-contiguous")
+    img = _rgb8(img)
+    if radius < 0:
+        raise ValueError(f"circles_filled: radius {radius} < 0")
+    c_c = np.ascontiguousarray(centers, np.int32).reshape(-1, 2)
+    rgb = np.ascontiguousarray(color, np.int32)
+    lib.poco_circles_filled(img.ctypes.data, img.shape[0], img.shape[1], c_c.ctypes.data,
+                            len(c_c), int(radius), rgb.ctypes.data)
 
 
 def put_glyphs(img: np.ndarray, glyphs: list[tuple], pen_x: list[int], baseline: int,
