@@ -10,12 +10,14 @@ change, parent), so that the card's drift over the run falls on both
 alike. Each checkout runs in a process of its own, from its own
 directory, with its own `chip_smoke.py` and `poco_tpu_torch/` (its kernels
 built into its own `_build/`): phases 1 (environment), 2 (build) and 4
-(the POCO-CLIFF main path) always, 4b (POCO-PARE) before `train`, then
+(the POCO-CLIFF main path) always, 4b (POCO-PARE) before `train` or
+`precision`, then
 the chosen ones in this order: `train` (4f), `serving` (4h), `dist` (4i,
 in a checkout that has it, and 4n, the model axis, where it has that),
 `demo` (4j, likewise, and 4o), `crop` (4p, in a checkout that has it),
 `losses` (4k-4m, on 4f's synthetic samples, in a checkout that has them),
-`tools` (4q, likewise). Every line a run prints is printed with
+`tools` (4q, likewise), `precision` (4r, after 4h, which it needs, on 4f's
+synthetic samples; likewise). Every line a run prints is printed with
 `[i dir]` before it. Exits 1 if any run failed, after all have run.
 """
 
@@ -26,7 +28,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = ("train", "serving", "dist", "demo", "crop", "losses", "tools")
+PHASES = ("train", "serving", "dist", "demo", "crop", "losses", "tools", "precision")
 
 RUN = """
 import sys
@@ -36,9 +38,11 @@ phases, seed = sys.argv[1].split(","), int(sys.argv[2])
 card, _ = cs.phase_environment()
 cs.phase_build()
 ctx = cs.phase_main_path(seed)
+# 4b right after 4, as in the smoke: its boxes are the next draws of 4's rng
+pare = cs.phase_pare(ctx, seed) if {"train", "precision"} & set(phases) else None
 if "train" in phases:
-    cs.phase_train(ctx, cs.phase_pare(ctx, seed), seed, card)["tmp"].cleanup()
-if "serving" in phases:
+    cs.phase_train(ctx, pare, seed, card)["tmp"].cleanup()
+if "serving" in phases or "precision" in phases:
     cs.phase_serving(ctx, card)
 if "dist" in phases:
     cs.phase_dist(ctx, seed, card)
@@ -54,6 +58,11 @@ if "losses" in phases:
     cs.phase_launchers(card)
 if "tools" in phases:
     cs.phase_tools(ctx, card)
+if "precision" in phases:
+    data = cs.SyntheticTrainSet(10 * 64, seed + 31, ctx["smpl"].to("cpu"))
+    train = {"data": data, "host": cs.collate([data[i] for i in range(64)]),
+             "step_crops_per_s": float("nan")}
+    cs.phase_precision(ctx, pare, train, card)
 """
 
 

@@ -75,14 +75,16 @@ Phases, each of which raises (exit code 1) on failure:
      trainer's crops/s, the loader in the loop);
   4h. serving: POCO-CLIFF (phase 4's weights) exported on the card with
      `runtime/export.py` (uint8 input, buckets 1, 8, 32, 128; export, load
-     and per-bucket warm-up seconds, the artifact's size); the exported
+     and per-bucket warm-up seconds, the artifact's size; 4h's compact
+     artifact and 4r's bf16, data-parallel and CPU-exported ones are
+     exported beside it, each by a process of its own); the exported
      program against eager `model(batch, smpl)` at 1, 8, 32 and 128 crops
      (joints3d / vertices within 1e-6 m, every other output within 1e-5
      absolute and relative), `skinning` once per bucket dispatch; a
      torch.profiler trace of `ExportedPoco.predict` at 1 and 32 crops
      (device busy share); then a `PocoServer` on loopback driven by
      `cli/bench_serving.run_combo` at 1x1, 8x1, 1x8, 64x1 and 1x128
-     (clients x crops a request, at least 100 timed requests each): p50/p99
+     (clients x crops a request, at least 50 timed requests each): p50/p99
      latency, crops/s and requests per dispatch, one `skinning` launch a
      dispatch, and every response's shapes and its rows against
      `ExportedPoco.predict` on that client's own crops at the bucket its
@@ -189,11 +191,11 @@ Phases, each of which raises (exit code 1) on failure:
      and 128 boxes: the largest difference (within 1e-2 grey levels) and
      both times;
   4q. the tools (`python -m poco_tpu_torch.cli.<tool>`), at full width:
-     (a) `convergence_bench --which cliff` for 20 epochs (the tool's 150
+     (a) `convergence_bench --which cliff` for 12 epochs (the tool's 150
      cut) on a fresh synthetic `conv` set, in a process of its own: every
-     logged loss term finite, val MPJPE at epoch 19 (and the best model's)
-     within the tool's 120 mm, the 3D joint loss lower over epochs 10-19
-     than over 0-9 (val MPJPE at 19 against 9, the correlation and the
+     logged loss term finite, val MPJPE at epoch 9 (and the best model's)
+     within the tool's 120 mm, the 3D joint loss lower over epochs 10-11,
+     past the freeze boundary, than over 0-9 (the correlation and the
      tool's pass printed, not gated), and one epoch of the recipe in this
      process through `cli.train.main`: 2 `skinning` + 1 `skinning_backward`
      a step; (b) `calibration_decay` over (a)'s run: each row's MPJPE
@@ -211,6 +213,31 @@ Phases, each of which raises (exit code 1) on failure:
      skinning kernels (and the train step's TRAIN_STAGES ranges); then
      both kernels against their plain versions at the phase's shapes
      (V=432, the recipe's SMPL; V=512, the gate's);
+  4r. precision and artifacts: (a) POCO-CLIFF and POCO-PARE in bf16
+     (`models.poco.compute_precision`) at 128 boxes beside fp32, each
+     output's largest distance from fp32 (joints and vertices in mm),
+     `skinning` once a request (its wrapper takes fp32 only), and the
+     card's bf16 against the CPU's at batch 2 by the bars of
+     tests/test_torch_precision.py, or within twice the card's own bf16
+     through cuDNN against the native convolutions, the camera
+     translations against the card's own `pred_cam`; (b) the bf16 artifact of POCO-CLIFF
+     (uint8, buckets 1, 8, 32, 128) against the eager bf16 forward at
+     every bucket (the fp32 artifact's tolerances, or a tenth of bf16's
+     distance from fp32 where cuDNN picks other algorithms), `predict` at 1
+     and 128 crops beside 4h's fp32 artifact, 8x1 over HTTP held to
+     `predict`; (c) a TRAINING.PRECISION: 16 train step of POCO-CLIFF at 64
+     (first step's loss beside fp32's from the same weights, 13 steps:
+     finite, 2 + 1 launches, ms beside 4f's); (d) a data_parallel=2
+     artifact with its replicas named on the one card: against 4h's
+     artifact at 8, 32, 128 crops within the JAX package's bars, `skinning`
+     once a shard, 8x1 over HTTP held to `predict` (correctness, not
+     scaling); (e) POCO-CLIFF exported on the CPU for ("cpu", "cuda"),
+     served on the card: against 4h's artifact within the same bars,
+     `skinning` launched on the card; (f) `cli.bench_serving --overload
+     --server-subproc` on 4h's artifact (64 clients of 8 crops, a budget
+     of 32 rows, two floods of 2 s: rejections, each a 429 or 503 with a
+     Retry-After, and the pending rows within the budget) and
+     `--sweep-window 0,5` at 64x1;
   5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
      (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
      kernel and, in turns, with the plain skinning in its place (the
@@ -230,10 +257,10 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
-The yardsticks never launch on the main paths (checked in 4-4q, in
+The yardsticks never launch on the main paths (checked in 4-4r, in
 every rank). The line before the last is the kernels' JSON record
 (`skinning`, `skinning_simt`, `skinning_backward`,
-`skinning_backward_simt`, launches summed over phases 4-4q and the
+`skinning_backward_simt`, launches summed over phases 4-4r and the
 ranks of 4i and 4n); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
@@ -267,7 +294,9 @@ from poco_tpu_torch.cli import eval as cli_eval
 from poco_tpu_torch.cli import train as cli_train
 from poco_tpu_torch.config import model_config_from_hparams, update_hparams
 from poco_tpu_torch.constants import (
+    FOCAL_LENGTH,
     IMG_NORM_STD,
+    IMG_RES,
     PW3D_OCCLUDED_SEQUENCES,
     PW3D_TEST_SEQUENCES,
 )
@@ -286,8 +315,14 @@ from poco_tpu_torch.eval.runner import (
     pw3d_split_report,
     run_eval,
 )
-from poco_tpu_torch.models.poco import build_hmr, build_poco_cliff, build_poco_pare
+from poco_tpu_torch.models.poco import (
+    build_hmr,
+    build_poco_cliff,
+    build_poco_pare,
+    compute_precision,
+)
 from poco_tpu_torch.ops import kernels
+from poco_tpu_torch.ops.camera import crop_cam_to_full_img_cam, weak_perspective_to_perspective
 from poco_tpu_torch.ops.preprocess import normalize_image, preprocess_crops
 from poco_tpu_torch.ops.rotation import average_rotmats, axis_angle_to_rotmat
 from poco_tpu_torch.ops.skinning import (
@@ -1175,9 +1210,10 @@ def phase_eval(ctx: dict, pare: dict, seed: int, card: str) -> dict:
 
     # samples/s at batch 64 with flip-TTA off and on, in turns; and at
     # batch 128 without it, the serving phases' batch, for comparison
-    # (4 passes each at 64, 3 at 128: 6, 6 and 3 before 4q joined the run)
+    # (2 passes each: 6, 6 and 3 before 4q joined the run, 4, 4 and 3
+    # before 4r did)
     runs = ((EVAL_BATCH, False), (EVAL_BATCH, True), (EVAL_BATCH, True),
-            (EVAL_BATCH, False)) * 2 + ((2 * EVAL_BATCH, False),) * 3
+            (EVAL_BATCH, False)) + ((2 * EVAL_BATCH, False),) * 2
     times = {run: [] for run in runs}
     for batch_size, flip in runs:
         torch.cuda.synchronize()
@@ -1519,7 +1555,8 @@ def phase_train(ctx: dict, pare: dict, seed: int, card: str) -> dict:
             "data": data, "host": host}
 
 
-def time_train_step(label: str, step, batch: dict, smpl, card: str) -> list[float]:
+def time_train_step(label: str, step, batch: dict, smpl, card: str,
+                    precision: str = "fp32") -> list[float]:
     """One batch, 3 warm-up and 10 timed steps: every metric finite, the
     loss falling; prints the median step time with min and max and
     returns the timed steps' seconds."""
@@ -1539,7 +1576,8 @@ def time_train_step(label: str, step, batch: dict, smpl, card: str) -> list[floa
     check(totals[-1] < totals[0], f"{label}: the loss did not fall over 13 steps on one batch")
     ts = times[3:]
     med = statistics.median(ts)
-    print(f"train step fp32, batch {batch_size}, {label}, {len(ts)} steps after 3 warm-up: "
+    print(f"train step {precision}, batch {batch_size}, {label}, {len(ts)} steps after 3 "
+          f"warm-up: "
           f"median {med * 1e3:.3f} ms (min {min(ts) * 1e3:.3f}, max {max(ts) * 1e3:.3f}) = "
           f"{batch_size / med:.1f} crops/s (min {batch_size / max(ts):.1f}, max "
           f"{batch_size / min(ts):.1f}); peak memory "
@@ -1608,9 +1646,11 @@ def read_png(path: Path) -> np.ndarray:
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def loss_trainer(ctx: dict, config: str, weights, render: bool, segm: bool, data):
+def loss_trainer(ctx: dict, config: str, weights, render: bool, segm: bool, data,
+                 precision: int = 32):
     """A full-width Trainer of `config` as it is, the render and part-
-    segmentation losses set in code, with `weights` loaded."""
+    segmentation losses and TRAINING.PRECISION set in code, with `weights`
+    loaded."""
     import tempfile
 
     from poco_tpu_torch.train.trainer import Trainer
@@ -1619,6 +1659,7 @@ def loss_trainer(ctx: dict, config: str, weights, render: bool, segm: bool, data
         hparams = train_hparams(logdir, config)
         hparams.TRAINING.USE_SMPL_RENDER_LOSS = render
         hparams.TRAINING.USE_SMPL_SEGM_LOSS = segm
+        hparams.TRAINING.PRECISION = precision
         trainer = Trainer(hparams, ctx["smpl"], train_dataset_fn=lambda epoch: data,
                           device="cuda")
         trainer.close()
@@ -1809,8 +1850,9 @@ def phase_launchers(card: str) -> None:
 
 # -- the tools (phase 4q) ------------------------------------------------------
 
-TOOLS_EPOCHS = 20         # 4q's convergence budget (the tool's 150 cut): validations at 9, 19
-TOOLS_MPJPE_MM = 120.0    # the tool's own --mpjpe_thresh, held at epoch 19
+TOOLS_EPOCHS = 12         # 4q's convergence budget (the tool's 150 cut; 20 before 4r joined the
+#                           run): the validation at epoch 9, two epochs past the freeze at 10
+TOOLS_MPJPE_MM = 120.0    # the tool's own --mpjpe_thresh, held at epoch 9
 TOOLS_STEPS = 10          # steps an epoch: 500 samples at configs/convergence.yaml's batch of 50
 TOOLS_LOG_INTERVAL = 10   # the recipe's LOG_SAVE_INTERVAL: the steps metrics.jsonl logs
 DECAY_TOL_MM = 1e-3       # a calibration-decay row's MPJPE against the trainer's validation
@@ -1876,10 +1918,10 @@ def full_frame_iou(gts: list[np.ndarray], size: float) -> tuple[float, int]:
 def phase_tools(ctx: dict, card: str) -> dict[str, Counter]:
     """Phase 4q: the JAX package's training-science and gate tools on the
     port, at full width: (a) `cli.convergence_bench --which cliff` for
-    TOOLS_EPOCHS epochs on a fresh `conv` set (val MPJPE at epoch 19 within
+    TOOLS_EPOCHS epochs on a fresh `conv` set (val MPJPE at epoch 9 within
     the tool's 120 mm, the 3D joint loss falling across the freeze
-    boundary, every logged loss term finite; epoch 19's MPJPE against
-    epoch 9's and the correlation recorded), and one epoch of the same
+    boundary, every logged loss term finite; the correlation recorded),
+    and one epoch of the same
     recipe in this process through `cli.train.main` for the launches a
     step; (b) `cli.calibration_decay` over (a)'s run, each row's MPJPE the
     trainer's validation of that epoch; (c) `cli.camera_bringup` on (a)'s
@@ -1924,11 +1966,10 @@ def phase_tools(ctx: dict, card: str) -> dict[str, Counter]:
         k3d = [statistics.fmean(r["loss/loss_keypoints_3d"] for r in steps
                                 if lo <= r["epoch"] < lo + 10) for lo in (0, 10)]
         print(f"convergence: {TOOLS_EPOCHS} epochs in {conv_s:.1f} s (data, training, two "
-              f"evaluations), val MPJPE by epoch {curve} mm (epoch 19 below epoch 9: "
-              f"{curve.get(19, math.inf) < curve.get(9, -math.inf)}; recorded, see PERF.md §6 "
-              f"PR 13), uncert_pose_corr {conv['uncert_pose_corr']} (recorded, not gated at "
+              f"evaluations), val MPJPE by epoch {curve} mm, uncert_pose_corr {conv['uncert_pose_corr']} (recorded, not gated at "
               f"{TOOLS_EPOCHS} epochs), the tool's pass {conv['pass']} (exit {rc}); the 3D joint "
-              f"loss over epochs 0-9 {k3d[0]:.4f}, over 10-19 {k3d[1]:.4f}; {len(steps)} logged "
+              f"loss over epochs 0-9 {k3d[0]:.4f}, over 10-{TOOLS_EPOCHS - 1} {k3d[1]:.4f}; "
+              f"{len(steps)} logged "
               f"steps, every loss term finite: {not bad} on {card}")
         check(rc == (0 if conv["pass"] else 1), f"convergence_bench exited {rc}, pass "
                                                 f"{conv['pass']}")
@@ -1936,8 +1977,8 @@ def phase_tools(ctx: dict, card: str) -> dict[str, Counter]:
         # LOG_SAVE_INTERVAL 10 in the recipe: one logged step an epoch
         check(len(steps) == TOOLS_EPOCHS * math.ceil(TOOLS_STEPS / TOOLS_LOG_INTERVAL),
               f"{len(steps)} logged steps")
-        check(sorted(curve) == [9, 19], f"validations at epochs {sorted(curve)}")
-        check(curve[19] <= TOOLS_MPJPE_MM and conv["val_mpjpe_mm"] <= TOOLS_MPJPE_MM,
+        check(sorted(curve) == [9], f"validations at epochs {sorted(curve)}")
+        check(curve[9] <= TOOLS_MPJPE_MM and conv["val_mpjpe_mm"] <= TOOLS_MPJPE_MM,
               f"val MPJPE {curve} mm, best model {conv['val_mpjpe_mm']}: past {TOOLS_MPJPE_MM}")
         check(k3d[1] < k3d[0], f"the 3D joint loss did not fall: {k3d}")
 
@@ -1967,7 +2008,7 @@ def phase_tools(ctx: dict, card: str) -> dict[str, Counter]:
               f"{decay['homogenization_confirmed']}; |cli.eval - the trainer's validation| "
               f"{diffs} mm (tolerance {DECAY_TOL_MM}; {time.perf_counter() - phase_start:.1f} s "
               "into 4q)")
-        check([r["ckpt"] for r in decay["rows"]] == ["epoch_009", "epoch_019"],
+        check([r["ckpt"] for r in decay["rows"]] == ["epoch_009"],
               f"calibration decay rows {decay['rows']}")
         check(max(diffs.values()) <= DECAY_TOL_MM, f"calibration decay vs validation {diffs}")
 
@@ -2458,10 +2499,64 @@ def fit_on_fullhd(ctx: dict, train: dict, seed: int, card: str) -> Counter:
 
 
 SERVE_BUCKETS = (1, 8, 32, 128)
+DP_REPLICAS = ["cuda:0", "cuda:0"]   # 4r (d): two replicas named on the one card
+DP_BUCKETS = (2, 8, 32, 128)
+# The artifacts of 4h and 4r other than 4h's own, from phase 4's POCO-CLIFF:
+# each is exported by a process of its own (`--export-job`), all of them
+# beside 4h's export (an export is ~40 s of single-threaded tracing; one
+# after another they took ~200 s of the time limit)
+EXPORT_JOBS = {
+    "compact": dict(batch_sizes=(8,), uint8_input=True, compact=True, device="cuda"),
+    "bf16": dict(batch_sizes=SERVE_BUCKETS, uint8_input=True, device="cuda", dtype="bf16"),
+    "dp2": dict(batch_sizes=DP_BUCKETS, uint8_input=True, device="cuda",
+                data_parallel=len(DP_REPLICAS)),
+    "cpu": dict(batch_sizes=SERVE_BUCKETS, uint8_input=True, device="cpu",
+                platforms=("cpu", "cuda")),
+}
+
+
+def start_exports(model, smpl, tmp: str) -> dict[str, subprocess.Popen]:
+    """Write the weights once and start one `--export-job` process an
+    entry of EXPORT_JOBS, each exporting into `tmp`/<name>."""
+    torch.save({"model": model.state_dict(), "smpl": smpl.to("cpu")}, f"{tmp}/weights.pt")
+    return {name: subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--export-job", name, "--dist-dir", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in EXPORT_JOBS}
+
+
+def finish_exports(procs: dict[str, subprocess.Popen]) -> dict[str, float]:
+    """Wait for every export process; each must exit 0. Returns each
+    export's seconds (taken beside the others)."""
+    seconds, failed = {}, []
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=DIST_TIMEOUT)
+        found = [ln for ln in out.splitlines() if ln.startswith(f"export {name}: ")]
+        if proc.returncode != 0 or not found:
+            failed.append(name)
+            print(f"export job {name} (exit {proc.returncode}):\n{out[-3000:]}")
+        else:
+            seconds[name] = float(found[-1].split()[2])
+    check(not failed, f"export jobs failed: {failed}")
+    return seconds
+
+
+def export_job(name: str, tmp: Path) -> int:
+    """One entry of EXPORT_JOBS: phase 4's POCO-CLIFF rebuilt from the
+    weights `start_exports` wrote, exported into `tmp`/<name>."""
+    spec = EXPORT_JOBS[name]
+    blob = torch.load(tmp / "weights.pt", weights_only=False)   # written by this run
+    cfg = model_config_from_hparams(update_hparams(str(REPO / "configs/poco_cliff.yaml")))
+    model = build_poco_cliff(device=spec["device"], **dataclasses.asdict(cfg))
+    model.load_state_dict(blob["model"])
+    start = time.perf_counter()
+    export_poco(model, blob["smpl"].to(spec["device"]), str(tmp / name), **spec)
+    print(f"export {name}: {time.perf_counter() - start:.2f} s", flush=True)
+    return 0
 SERVE_HELD = SERVE_BUCKETS        # crops held against eager, each a bucket (no padding)
 # (clients, crops a request, requests a client): the HTTP combos, each with
-# at least 100 timed requests, so that its p99 is a tail and not the largest
-SERVE_COMBOS = ((1, 1, 100), (8, 1, 13), (1, 8, 100), (64, 1, 4), (1, 128, 100))
+# at least 50 timed requests (100 before 4r joined the run: the time limit);
+# the p99 of 50 lies between the two largest, so it reads the worst requests
+SERVE_COMBOS = ((1, 1, 50), (8, 1, 7), (1, 8, 50), (64, 1, 4), (1, 128, 50))
 SERVE_METERS_TOL = 1e-6   # joints3d / vertices, exported program vs eager, m
 SERVE_HEAD_TOL = 1e-5     # every other output, absolute and relative (pixels near 1e3)
 COMPACT_TOL = 1e-3        # fp16 vertices of a compact artifact vs fp32, m (export.py:46-49)
@@ -2569,11 +2664,19 @@ def phase_serving(ctx: dict, card: str) -> Counter:
     model, smpl = ctx["model"], ctx["smpl"]
     device, num_verts = smpl.v_template.device, smpl.v_template.shape[0]
     counts = Counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+    # the artifact, its loaded program and the held batches stay for 4r,
+    # which removes the directory
+    ctx["serve_tmp"] = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    with contextlib.nullcontext(ctx["serve_tmp"].name) as tmp:
         art = f"{tmp}/cliff_u8"
+        jobs = start_exports(model, smpl, tmp)
         start = time.perf_counter()
         export_poco(model, smpl, art, batch_sizes=SERVE_BUCKETS, uint8_input=True, device=device)
         export_s = time.perf_counter() - start
+        job_s = finish_exports(jobs)
+        print(f"exports of 4h and 4r in processes of their own, beside this one (seconds each, "
+              f"taken side by side): {job_s}; all done {time.perf_counter() - start:.2f} s "
+              f"after this one began")
         size = sum(p.stat().st_size for p in Path(art).iterdir())
         print(f"export: {export_s:.2f} s, artifact {size / 1e6:.1f} MB "
               f"({sorted(p.name for p in Path(art).iterdir())}), buckets {SERVE_BUCKETS}")
@@ -2631,11 +2734,7 @@ def phase_serving(ctx: dict, card: str) -> Counter:
             server.stop()
 
         # a compact artifact: fp16 vertices within 1 mm of the fp32 ones
-        compact = f"{tmp}/cliff_u8_compact"
-        start = time.perf_counter()
-        export_poco(model, smpl, compact, batch_sizes=(8,), uint8_input=True, compact=True,
-                    device=device)
-        print(f"compact export: {time.perf_counter() - start:.2f} s")
+        compact = f"{tmp}/compact"
         reset_counts()
         small = load_exported(compact, device=device).predict(held[8])
         counts.update(read_counts("serving compact"))
@@ -2646,6 +2745,345 @@ def phase_serving(ctx: dict, card: str) -> Counter:
               f"fp32 {dist:.3e} m (tolerance {COMPACT_TOL})")
         check(small["smpl_vertices"].dtype == np.float16 and dist <= COMPACT_TOL,
               f"compact vertices {dist} m from the fp32 artifact's")
+        ctx.update(serve_artifact=art, served=served, serve_held=held, export_seconds=job_s)
+    return counts
+
+
+# -- precision and artifacts (phase 4r) ----------------------------------------
+
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 2.0 ** -8   # one bf16 step (tests/test_torch_precision.py)
+BF16_SHARE = 0.5          # of the CPU's own bf16-to-fp32 distance, on a float32 output
+BF16_SPREAD = 2.0         # of the card's own bf16 spread (cuDNN against the native convolutions)
+# a key's fp32 tolerance, card against CPU (tests/test_torch_model.py:SLICE_TOLERANCES, the
+# PARE segmentation logits of tests/test_torch_pare.py)
+BF16_KEY_TOLS = {
+    "pred_pose": 2e-3, "pred_pose_6d": 2e-3, "pred_cam": 2e-3, "pred_shape": 2e-3,
+    "var_pose": 2e-3, "body_feat2": 2e-3, "uncert_feat": 5e-3, "pred_cam_t": 2e-3,
+    "pred_fullimg_cam_t": 2e-3, "smpl_vertices": 1e-4, "smpl_joints3d": 1e-4,
+    "smpl_joints2d": 1e-2, "pred_segm_mask": 2e-3,
+}
+# the camera translations, functions of `pred_cam` that multiply its rounding by t_z / s
+# (~80 at the smoke's boxes): held to the same function of the card's own `pred_cam` in
+# float64, within this share of it (bf16: the camera maths' two roundings; fp32: ~10 ulps)
+BF16_DERIVED_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-6}
+BF16_ARTIFACT_SHARE = 0.1  # bf16 artifact vs eager bf16 where cuDNN picks other algorithms:
+#                            this share of the eager bf16 output's distance from fp32
+DP_HELD = (8, 32, 128)
+JAX_DP_POSE = (2e-5, 1e-5)  # rtol, atol: pred_pose, tests/test_export.py:174-179
+JAX_DP_VERTS = 1e-5         # vertices atol, the same
+OVERLOAD = ["--overload-clients", "64", "--overload-crops", "8", "--overload-duration", "2",
+            "--overload-floods", "2", "--max-pending-rows", "32"]
+
+
+def jax_dp_bars(label: str, got: dict, want: dict) -> None:
+    """The JAX package's bars for an artifact against another
+    (tests/test_export.py:174-179), with the largest differences printed."""
+    check(sorted(got) == sorted(want), f"{label}: keys {sorted(got)} != {sorted(want)}")
+    pose = float(np.abs(got["pred_pose"] - want["pred_pose"]).max())
+    verts = float(np.abs(got["smpl_vertices"] - want["smpl_vertices"]).max())
+    print(f"{label}: pred_pose {pose:.3e}, smpl_vertices {verts:.3e} m")
+    check(np.allclose(got["pred_pose"], want["pred_pose"], rtol=JAX_DP_POSE[0],
+                      atol=JAX_DP_POSE[1]), f"{label}: pred_pose off by {pose}")
+    check(verts <= JAX_DP_VERTS, f"{label}: vertices off by {verts} m")
+
+
+def bf16_forward(model, smpl, batch: dict, dtype) -> dict:
+    with torch.inference_mode(), compute_precision(batch["img"].device.type, dtype):
+        return {k: v for k, v in model(batch, smpl).items() if v is not None}
+
+
+def derived_translations(out: dict, batch: dict) -> dict[str, torch.Tensor]:
+    """The camera translations of `out` computed again in float64 from its
+    own `pred_cam` and the batch, as `smpl.model`'s heads compute them."""
+    cam = out["pred_cam"].double().cpu()
+    got = {"pred_cam_t": weak_perspective_to_perspective(cam, FOCAL_LENGTH, IMG_RES)}
+    if "pred_fullimg_cam_t" in out:
+        b = {k: batch[k].double().cpu() for k in ("scale", "center", "orig_shape", "focal_length")}
+        got["pred_fullimg_cam_t"] = crop_cam_to_full_img_cam(
+            crop_cam=cam, bbox_height=b["scale"] * 200.0, bbox_center=b["center"],
+            img_w=b["orig_shape"][:, 1], img_h=b["orig_shape"][:, 0],
+            focal_length=b["focal_length"], crop_res=IMG_RES)
+    return got
+
+
+def bf16_card_vs_cpu(label: str, model, smpl, batch: dict) -> None:
+    """The card's bf16 forward against the CPU's on the same weights and
+    crops, by tests/test_torch_precision.py's rule: the same dtype; a
+    float32 output within BF16_SHARE x the CPU's own bf16-to-fp32
+    distance + the key's fp32 tolerance, a bf16 output within one bf16
+    step; an output that misses them (the rounding of cuDNN's and oneDNN's
+    bf16 kernels, in other orders, grows through the net, as with the CPU
+    test's narrow PARE twin) passes within BF16_SPREAD x the distance of
+    the card's own two bf16 forwards, through cuDNN and through the native
+    convolutions, + the tolerance. The camera translations are held to
+    the same function of the card's own `pred_cam` (`derived_translations`):
+    at two rows their rounding is `pred_cam`'s times a random factor near
+    80 (PERF.md §6)."""
+    card16, card32 = (bf16_forward(model, smpl, batch, d) for d in (torch.bfloat16, None))
+    with torch.backends.cudnn.flags(enabled=False):
+        native16 = bf16_forward(model, smpl, batch, torch.bfloat16)
+    cpu_model, cpu_smpl = copy.deepcopy(model).cpu(), smpl.to("cpu")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu16, cpu32 = (bf16_forward(cpu_model, cpu_smpl, cpu_batch, d)
+                    for d in (torch.bfloat16, None))
+    check(sorted(card16) == sorted(cpu16), f"{label}: keys differ")
+    derived = derived_translations(card16, batch)
+    readings, failed = {}, []
+    for key in sorted(cpu16):
+        check(card16[key].dtype == cpu16[key].dtype,
+              f"{label}: {key} is {card16[key].dtype} on the card, {cpu16[key].dtype} on the CPU")
+        got, want = card16[key].float().cpu(), cpu16[key].float()
+        own = float((want - cpu32[key].float()).abs().max())
+        err = float((got - want).abs().max())
+        spread = float((got - native16[key].float().cpu()).abs().max())
+        tol = BF16_KEY_TOLS.get(key, HEAD_TOL)
+        if key in derived:
+            again = derived[key]
+            err = float((card16[key].double().cpu() - again).abs().max())
+            bar = BF16_DERIVED_RTOL[card16[key].dtype] * float(again.abs().max())
+            close, verdict = err <= bar, f"card's pred_cam, bar {bar:.3e}"
+        else:
+            if cpu16[key].dtype == torch.bfloat16:
+                close = bool(torch.allclose(got, want, rtol=BF16_RTOL, atol=BF16_ATOL))
+            else:
+                close = err <= BF16_SHARE * own + tol
+            verdict = "close"
+            if not close:
+                close = err <= BF16_SPREAD * spread + tol
+                verdict = f"spread x{err / max(spread, 1e-30):.2f}"
+        if not close:
+            failed.append(key)
+        readings[key] = (f"{err:.3e}", f"cpu own {own:.3e}", f"card spread {spread:.3e}", verdict)
+    print(f"{label} bf16, card vs CPU at batch {len(batch['img'])} (difference, the CPU's own "
+          f"distance from fp32, the card's cuDNN-to-native distance, which bar): {readings}")
+    check(not failed, f"{label} bf16 card vs CPU: {failed} past the bars")
+
+
+def phase_precision(ctx: dict, pare: dict, train: dict, card: str) -> dict[str, Counter]:
+    """Phase 4r: bf16 at full width, the bf16 artifact, a PRECISION 16
+    train step, a data-parallel artifact, a CPU-exported artifact served
+    on the card, and `cli.bench_serving`'s overload and window-sweep modes
+    (see the module docstring). Uses 4h's artifact and removes its
+    directory. Returns each path's launches."""
+    from poco_tpu_torch.train.step import make_train_step
+
+    print("== 4r. precision and artifacts: bf16, data-parallel, exported on the CPU")
+    phase_start = time.perf_counter()
+    model, smpl, image = ctx["model"], ctx["smpl"], ctx["image"]
+    check(not model.training and not pare["model"].training, "4r: the models must be in eval mode")
+    device, num_verts = smpl.v_template.device, smpl.v_template.shape[0]
+    art, served, held = ctx["serve_artifact"], ctx["served"], ctx["serve_held"]
+    tmp = ctx["serve_tmp"].name
+    counts: dict[str, Counter] = {}
+
+    def stage(label: str) -> None:
+        print(f"-- 4r {label}: {time.perf_counter() - phase_start:.1f} s into 4r", flush=True)
+
+    # (a) bf16 at full width, 128 boxes, beside fp32
+    rng, (h, w) = ctx["rng"], image.shape[:2]
+    centers, scales = random_boxes(rng, 128, h, w)
+    batch = request_crops(image, centers, scales)
+    pare_model = pare["model"]
+    reset_counts()
+    outs16 = {name: bf16_forward(m, smpl, batch, torch.bfloat16)
+              for name, m in (("POCO-CLIFF", model), ("POCO-PARE", pare_model))}
+    torch.cuda.synchronize()
+    counts["bf16"] = read_counts("bf16 requests")
+    check(counts["bf16"]["skinning"] == 2,
+          f"bf16: skinning must launch once per request (fp32 inputs), got {dict(counts['bf16'])}")
+    for name, m in (("POCO-CLIFF", model), ("POCO-PARE", pare_model)):
+        out16, out32 = outs16[name], bf16_forward(m, smpl, batch, None)
+        dist = {}
+        for key in sorted(out32):
+            d = float((out16[key].float() - out32[key].float()).abs().max())
+            if key in ("smpl_vertices", "smpl_joints3d"):
+                d = max_point_dist(out16[key], out32[key]) * 1e3
+            dist[key] = f"{d:.4g}" + (" mm" if key in ("smpl_vertices", "smpl_joints3d") else "")
+        check(all(bool(torch.isfinite(v).all()) for v in out16.values()), f"{name} bf16: not finite")
+        print(f"{name} bf16 at 128 boxes, largest distance from fp32 by key: {dist}; dtypes "
+              f"{ {k: str(v.dtype).replace('torch.', '') for k, v in out16.items()} }")
+    c2, s2 = random_boxes(rng, 2, h, w)
+    two = request_crops(image, c2, s2)   # held to the CPU last, after (f)
+    stage("(a) bf16 forward")
+
+    # (b) the bf16 artifact, beside 4h's fp32 one
+    served16 = load_exported(f"{tmp}/bf16", device=device)
+    served16.warmup()
+    check(served16.meta["compute_dtype"] == "bfloat16", "bf16 artifact: compute_dtype")
+    print(f"bf16 artifact: export {ctx['export_seconds']['bf16']:.2f} s (4h's side by side), "
+          f"load {served16.load_seconds:.2f} s, warm-up "
+          f"{ {b: round(t, 3) for b, t in served16.warmup_seconds.items()} } s")
+    counts["bf16_artifact"] = Counter()
+    for n, hb in held.items():
+        tb = {k: torch.from_numpy(v).to(device) for k, v in hb.items()}
+        tb["img"] = normalize_image(tb["img"].float())
+        eager16 = {k: v.float().cpu().numpy() for k, v in bf16_forward(model, smpl, tb,
+                                                                      torch.bfloat16).items()}
+        eager32 = {k: v.cpu().numpy() for k, v in bf16_forward(model, smpl, tb, None).items()}
+        reset_counts()
+        got = served16.predict(hb)
+        torch.cuda.synchronize()
+        run = read_counts(f"bf16 artifact predict {n}")
+        check(run["skinning"] == len(served16.buckets_for(n)),
+              f"bf16 artifact: {run['skinning']} skinning launches for {n} crops")
+        counts["bf16_artifact"].update(run)
+        check(sorted(got) == sorted(eager16), f"bf16 artifact: keys {sorted(got)}")
+        diffs, bad = served_diffs(got, eager16)
+        # where the program and eager call cuDNN with other algorithms: a
+        # tenth of the eager bf16 output's distance from fp32
+        far = [k for k in bad if diffs[k] > BF16_ARTIFACT_SHARE * float(
+            np.abs(eager16[k] - eager32[k]).max())]
+        print(f"bf16 artifact vs eager bf16, {n} crops: largest difference by key {diffs}; "
+              f"past the fp32 artifact's tolerances {bad}, past a tenth of bf16's distance "
+              f"from fp32 {far}")
+        check(not far, f"bf16 artifact vs eager bf16, {n} crops: {far}")
+        check(all(v.dtype != np.float16 and np.isfinite(v).all() for v in got.values()),
+              "bf16 artifact: outputs must be finite float32")
+    for n in (1, 128):
+        print_times("ExportedPoco.predict in-process, uint8 crops", n,
+                    timed_requests(lambda: served16.predict(held[n]), reps=10), card, "bf16")
+        print_times("ExportedPoco.predict in-process, uint8 crops (4h's artifact)", n,
+                    timed_requests(lambda: served.predict(held[n]), reps=10), card)
+    server = PocoServer(served16, port=0, batch_window_ms=5.0).start(warmup=False)
+    try:
+        pairs = []
+        reset_counts()
+        dispatch0 = server.batcher.dispatch_count
+        row = bench_serving.run_combo(f"http://127.0.0.1:{server.port}", server.batcher, 8, 1,
+                                      13, check=pairs.extend)
+        torch.cuda.synchronize()
+        run = read_counts("bf16 artifact http 8x1")
+        check(run["skinning"] == server.batcher.dispatch_count - dispatch0,
+              "bf16 artifact over HTTP: skinning must launch once per dispatch")
+        counts["bf16_artifact"].update(run)
+        print(f"bf16 artifact serving 8x1: " + json.dumps({"card": card, **row}))
+        check_served_pairs(served16, 8, 1, pairs, num_verts)
+    finally:
+        server.stop()
+    del served16
+    stage("(b) bf16 artifact")
+
+    # (c) a TRAINING.PRECISION: 16 step at the config's batch, beside fp32
+    trainers = {}
+    for precision in (16, 32):
+        trainers[precision] = loss_trainer(ctx, "configs/poco_cliff.yaml", model, False, False,
+                                           train["data"], precision=precision)
+    check(trainers[16].autocast_dtype == torch.bfloat16 and trainers[32].autocast_dtype is None,
+          "PRECISION 16 did not reach the trainer")
+    first = {}
+    for precision, trainer in trainers.items():
+        step = make_train_step(trainer.model, trainer.optimizer, trainer.loss_cfg,
+                               autocast_dtype=trainer.autocast_dtype)
+        batch64 = trainer._device_batch(train["host"])
+        first[precision] = {k: float(v) for k, v in step(batch64, smpl).items()
+                            if k.startswith("loss/")}
+    print(f"PRECISION 16 vs 32, first step on one batch of {len(train['host']['img'])} from "
+          f"the same weights: total loss {first[16]['loss/total_loss']:.6f} / "
+          f"{first[32]['loss/total_loss']:.6f}; terms bf16 {first[16]}")
+    check(all(math.isfinite(v) for v in first[16].values()), "PRECISION 16: a term not finite")
+    del trainers[32]
+    trainer = trainers[16]
+    step = make_train_step(trainer.model, trainer.optimizer, trainer.loss_cfg,
+                           autocast_dtype=trainer.autocast_dtype)
+    batch64 = trainer._device_batch(train["host"])
+    reset_counts()
+    ts = time_train_step("POCO-CLIFF, PRECISION 16", step, batch64, smpl, card, "bf16")
+    counts["train_bf16"] = read_counts("train PRECISION 16")
+    check((counts["train_bf16"]["skinning"], counts["train_bf16"]["skinning_backward"])
+          == tuple(13 * n for n in TRAIN_LAUNCHES),
+          "PRECISION 16: each step must launch skinning 2 and skinning_backward 1 times")
+    print(f"PRECISION 16 step {statistics.median(ts) * 1e3:.3f} ms beside 4f's fp32 step "
+          f"{64 / train['step_crops_per_s'] * 1e3:.3f} ms (median, batch 64) on {card}")
+    del trainers, trainer, step, batch64
+    torch.cuda.empty_cache()
+    stage("(c) PRECISION 16 step")
+
+    # (d) a data-parallel artifact, two replicas named on the one card
+    dp = load_exported(f"{tmp}/dp2", devices=DP_REPLICAS)
+    dp.warmup()
+    print(f"data-parallel artifact: {len(DP_REPLICAS)} replicas on {DP_REPLICAS} (one card: "
+          f"this shows the replicas correct, not that they scale); export "
+          f"{ctx['export_seconds']['dp2']:.2f} s (4h's side by side), "
+          f"load {dp.load_seconds:.2f} s, meta platforms {dp.meta['platforms']}")
+    counts["data_parallel"] = Counter()
+    for n in DP_HELD:
+        reset_counts()
+        got = dp.predict(held[n])
+        torch.cuda.synchronize()
+        run = read_counts(f"data-parallel predict {n}")
+        check(run["skinning"] == len(DP_REPLICAS) * len(dp.buckets_for(n)),
+              f"data-parallel: skinning must launch once a shard, got {dict(run)} for {n}")
+        counts["data_parallel"].update(run)
+        jax_dp_bars(f"data-parallel vs single artifact, {n} crops", got, served.predict(held[n]))
+    server = PocoServer(dp, port=0, batch_window_ms=5.0).start(warmup=False)
+    try:
+        pairs = []
+        reset_counts()
+        dispatch0 = server.batcher.dispatch_count
+        row = bench_serving.run_combo(f"http://127.0.0.1:{server.port}", server.batcher, 8, 1,
+                                      13, check=pairs.extend)
+        torch.cuda.synchronize()
+        run = read_counts("data-parallel http 8x1")
+        check(run["skinning"] == len(DP_REPLICAS) * (server.batcher.dispatch_count - dispatch0),
+              "data-parallel over HTTP: skinning must launch once a shard")
+        counts["data_parallel"].update(run)
+        print("data-parallel serving 8x1 (two replicas on one card: correctness, not "
+              "scaling): " + json.dumps({"card": card, **row}))
+        check_served_pairs(dp, 8, 1, pairs, num_verts)
+    finally:
+        server.stop()
+    dp.close()
+    del dp
+    stage("(d) data-parallel artifact")
+
+    # (e) exported on the CPU for ("cpu", "cuda"), served on the card
+    moved = load_exported(f"{tmp}/cpu", device=device)
+    moved.warmup()
+    print(f"CPU-exported artifact: export on the CPU {ctx['export_seconds']['cpu']:.2f} s "
+          f"(4h's side by side), platforms "
+          f"{moved.meta['platforms']}, loaded on {moved.device} in {moved.load_seconds:.2f} s")
+    counts["cpu_exported"] = Counter()
+    for n in (8, 128):
+        reset_counts()
+        got = moved.predict(held[n])
+        torch.cuda.synchronize()
+        run = read_counts(f"CPU-exported predict {n}")
+        check(run["skinning"] == len(moved.buckets_for(n)),
+              f"CPU-exported artifact on the card: skinning must launch once a dispatch (the "
+              f"CPU's plain version would show none), got {dict(run)}")
+        counts["cpu_exported"].update(run)
+        jax_dp_bars(f"CPU-exported vs card-exported artifact, {n} crops", got,
+                    served.predict(held[n]))
+    del moved
+    stage("(e) CPU-exported artifact")
+
+    # (f) the bench's overload (the server a process of its own) and window sweep
+    rows = bench_serving.main(["--artifact", art, "--device", "cuda", "--overload",
+                               "--server-subproc", *OVERLOAD])
+    check([r["flood"] for r in rows] == [0, 1], "overload: two floods")
+    for row in rows:
+        print(f"overload flood {row['flood']}: " + json.dumps({"card": card, **row}))
+        check(row["rejected"] > 0 and row["pending_rows_hwm"] <= row["budget_rows"]
+              and set(row["rejected_by_code"]) <= {429, 503}
+              and row["rejected_without_retry_after"] == 0,
+              f"overload flood {row['flood']}: {row}")
+    reset_counts()
+    rows = bench_serving.main(["--artifact", art, "--device", "cuda", "--sweep-window", "0,5",
+                               "--sweep-combo", "64x1", "--requests-per-client", "1"])
+    torch.cuda.synchronize()
+    counts["sweep"] = read_counts("bench_serving --sweep-window")
+    for row in rows:
+        print("sweep-window: " + json.dumps({"card": card, **row}))
+    check([r["window_ms"] for r in rows] == [0.0, 5.0] and counts["sweep"]["skinning"] > 0,
+          f"sweep: rows {rows}, launches {dict(counts['sweep'])}")
+    stage("(f) cli.bench_serving")
+    for name, m in (("POCO-CLIFF", model), ("POCO-PARE", pare_model)):
+        bf16_card_vs_cpu(name, m, smpl, two)
+    stage("(a) bf16 card vs CPU")
+    ctx["serve_tmp"].cleanup()
+    for key in ("served", "serve_held", "serve_artifact", "serve_tmp"):
+        ctx.pop(key)
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3861,9 +4299,10 @@ def timed_requests(run, reps: int) -> list[float]:
     return times
 
 
-def print_times(label: str, batch: int, ts: list[float], card: str) -> None:
+def print_times(label: str, batch: int, ts: list[float], card: str,
+                precision: str = "fp32") -> None:
     med = statistics.median(ts)
-    print(f"throughput fp32, batch {batch}, {label}, {len(ts)} requests: "
+    print(f"throughput {precision}, batch {batch}, {label}, {len(ts)} requests: "
           f"median {med * 1e3:.3f} ms (min {min(ts) * 1e3:.3f}, "
           f"max {max(ts) * 1e3:.3f}) = {batch / med:.1f} crops/s on {card}")
 
@@ -3958,7 +4397,8 @@ def merged_us(spans) -> float:
     return total
 
 
-PROFILE_CALLS = 2   # profiled calls a run in phase 6 (3 before 4q joined the run: the time limit)
+PROFILE_CALLS = 1   # profiled calls a run in phase 6 (3 before 4q joined the run, 2 before 4r
+#                     did: the time limit)
 
 
 def profile_request(label: str, run, card: str, stages=EVAL_STAGES) -> None:
@@ -4056,6 +4496,7 @@ def main() -> int:
     parser.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--grid-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--export-job", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4064,6 +4505,8 @@ def main() -> int:
         return dist_rank(args.dist_rank, Path(args.dist_dir), args.seed)
     if args.grid_rank is not None:  # one of phase 4n (b)'s ranks
         return grid_rank(args.grid_rank, Path(args.dist_dir), args.seed)
+    if args.export_job is not None:  # one of 4h's export processes
+        return export_job(args.export_job, Path(args.dist_dir))
     run_start = time.perf_counter()
     # The card's host sets PYTHONDONTWRITEBYTECODE and its site-packages is
     # read-only, so every process this run starts compiled torch's sources
@@ -4111,6 +4554,8 @@ def main() -> int:
     mark("phases 4k-4m")
     paths.update(phase_tools(ctx, card))
     mark("phase 4q")
+    paths.update(phase_precision(ctx, pare, train, card))
+    mark("phase 4r")
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)

@@ -17,9 +17,11 @@ the repo's `tools/serve_model.py`).
     PY
 
 The artifact serves on the card (`--device cuda`, the default; without a
-card the server refuses to start) or, when it was exported there, on the
-CPU with `--device cpu`. TF32 is switched off for cuBLAS and cuDNN, so the
-served numbers are fp32's.
+card the server refuses to start) or on the CPU with `--device cpu`,
+where its platforms list the device type. A data-parallel artifact's
+replicas go on the first N devices of that type, or on `--devices`
+(e.g. `cuda:0,cuda:0`: two replicas on one card). TF32 is switched off
+for cuBLAS and cuDNN, so an fp32 artifact serves fp32's numbers.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default=default_device(),
                     help="cuda or cpu (default: $POCO_TPU_PLATFORM, else cuda)")
+    ap.add_argument("--devices", default=None,
+                    help="comma list: the replicas of a data-parallel artifact")
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--batch-window-ms", type=float, default=5.0,
                     help="micro-batch coalescing window")
@@ -60,7 +64,8 @@ def make_server(args):
                       batch_window_ms=args.batch_window_ms,
                       max_pending_rows=args.max_pending_rows,
                       max_handler_threads=args.max_handler_threads,
-                      device=args.device)
+                      device=args.device,
+                      devices=args.devices.split(",") if args.devices else None)
 
 
 def main(argv=None) -> None:

@@ -69,8 +69,12 @@ class PerPositionConv1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(1, out_channels, h, w)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.einsum("bchw,ochw->bohw", x, self.weight[0, ..., 0])
-        return y if self.bias is None else y + self.bias
+        # as the JAX layer's einsum: the input promoted to the weight's
+        # dtype, so fp32 weights compute in fp32 under a bf16 autocast
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        with torch.autocast(x.device.type, enabled=False):
+            y = torch.einsum("bchw,ochw->bohw", x.to(dtype), self.weight[0, ..., 0].to(dtype))
+            return y if self.bias is None else y + self.bias
 
 
 def keypoint_attention(

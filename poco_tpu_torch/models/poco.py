@@ -15,6 +15,13 @@ Batch dict (the JAX package's layout):
     orig_shape   (B, 2)            original (h, w)          [cliff head]
     gt_pose_rotmat    (B, 24, 3, 3)  optional: the flow head's log_phi
     gt_pose_cond_mask (B,)           optional, GT_POSE_COND calibration
+
+Precision: the weights are fp32. `compute_precision(device_type, dtype)`
+is the region that runs the model in bf16, as `POCO(dtype=jnp.bfloat16)`
+of the JAX package does: the backbone, heads and uncertainty head compute
+in bf16 (a bf16 autocast), SMPL and the cameras in fp32 (`_forward` shuts
+the autocast off around them). Inference, the exported artifacts and the
+trainer's `TRAINING.PRECISION: 16` all enter it.
 """
 
 from __future__ import annotations
@@ -55,6 +62,17 @@ BACKBONES = {
     "tiny": tiny_cls,
     "tiny_pose": tiny_pose,
 }
+
+
+COMPUTE_DTYPES = {"fp32": None, "bf16": torch.bfloat16}
+
+
+def compute_precision(device_type: str, dtype: torch.dtype | None):
+    """The model's compute precision on `device_type` ("cuda" or "cpu"):
+    a bf16 autocast for `dtype=torch.bfloat16`, nothing for None (fp32)."""
+    if dtype not in COMPUTE_DTYPES.values():
+        raise ValueError(f"compute dtype {dtype}: the model computes in fp32 (None) or bf16")
+    return torch.autocast(device_type, dtype=torch.bfloat16, enabled=dtype is not None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,11 +184,13 @@ class POCO(nn.Module):
         features = self.backbone(batch["img"].permute(0, 3, 1, 2))
         head_out = (self.head(features, batch["bbox_info"]) if cfg.head_name == "cliff"
                     else self.head(features))
-        # SMPL and the cameras stay fp32 under a bf16 autocast (PRECISION: 16)
+        # SMPL and the cameras run outside a bf16 autocast (PRECISION: 16):
+        # SMPL in fp32, as the JAX package promotes a bf16 shape against its
+        # fp32 SMPL tensors; the camera in the head's own dtype, as JAX
+        # computes a bf16 camera's translation (POCO-PARE's) in bf16
         with torch.autocast(features.device.type, enabled=False):
-            rotmat, shape, cam = (
-                _full_precision(head_out[k]) for k in ("pred_pose", "pred_shape", "pred_cam")
-            )
+            rotmat, shape = (_full_precision(head_out[k]) for k in ("pred_pose", "pred_shape"))
+            cam = head_out["pred_cam"]
             if cfg.head_name == "cliff":
                 s = smplcam_head(
                     smpl,

@@ -571,7 +571,8 @@ class PocoServer:
     one program at a time anyway, so concurrency belongs in the batch
     (concurrent requests coalesce into one padded dispatch), not in
     racing dispatches. A path is loaded on `device`, CUDA unless the
-    caller asks for the CPU (no card raises).
+    caller asks for the CPU (no card raises), a data-parallel artifact's
+    replicas on `devices` where they are named.
     """
 
     def __init__(self, artifact: str | ExportedPoco,
@@ -579,10 +580,13 @@ class PocoServer:
                  batch_window_ms: float = 5.0,
                  max_pending_rows: int | None = None,
                  max_handler_threads: int | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 devices: list[str | torch.device] | None = None):
+        # an artifact loaded here is closed by `stop`; one passed in, by its owner
+        self._owns_model = not isinstance(artifact, ExportedPoco)
         self.model = (
-            artifact if isinstance(artifact, ExportedPoco)
-            else load_exported(artifact, device=device)
+            load_exported(artifact, device=device, devices=devices) if self._owns_model
+            else artifact
         )
         self.batcher = MicroBatcher(
             self.model, window_ms=batch_window_ms,
@@ -623,3 +627,5 @@ class PocoServer:
             self._thread.join(timeout=10)
         self.httpd.server_close()
         self.batcher.stop()
+        if self._owns_model:
+            self.model.close()

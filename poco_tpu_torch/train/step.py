@@ -27,6 +27,7 @@ from torch.profiler import record_function
 
 from ..constants import FOCAL_LENGTH, IMG_RES, J24_TO_J14
 from ..losses.losses import LossConfig, poco_loss
+from ..models.poco import compute_precision
 from ..ops.camera import perspective_projection
 from ..ops.rotation import axis_angle_to_rotmat
 from ..ops.soft_raster import soft_part_probs, soft_silhouette
@@ -132,9 +133,7 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
         with record_function(TRAIN_STAGES[1]):
             model.train()
             model_batch = dict(batch, gt_pose_rotmat=gt["gt_pose_rotmat"])
-            device_type = batch["img"].device.type
-            with torch.autocast(device_type, dtype=autocast_dtype or torch.bfloat16,
-                                enabled=autocast_dtype is not None):
+            with compute_precision(batch["img"].device.type, autocast_dtype):
                 out = model(model_batch, smpl)
             out = add_pred_render(_fp32(out), gt)
             loss, loss_dict = poco_loss(out, gt, loss_cfg)

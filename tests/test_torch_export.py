@@ -11,9 +11,13 @@ JAX artifact within `tests/test_torch_model.py:SLICE_TOLERANCES` at 1,
 `model(batch, smpl)` exactly (on the padded batch where it pads). The
 narrow POCO-PARE and HMR twins export too. The exported graph calls the
 `poco_tpu_torch::skinning` op, not the plain einsums, and
-`torch.library.opcheck` holds both ops' registrations. What is not
-ported is refused. `cli.export` writes an artifact that `cli.serve`
-serves, in-process.
+`torch.library.opcheck` holds both ops' registrations. A data-parallel
+artifact on two named CPU replicas equals the single one within the JAX
+package's bars (tests/test_export.py:174-179), every load goes through
+`move_to_device_pass`, and what an artifact cannot do is refused: an
+indivisible bucket, too few replicas, an unlisted device type, bf16
+weights. `cli.export` writes an artifact that `cli.serve` serves,
+in-process.
 """
 
 import io
@@ -324,41 +328,132 @@ def test_op_gradients_equal_the_plain_versions():
 
 
 # --------------------------------------------------------------------------
-# what is not ported, and the device rules
+# data-parallel artifacts, bf16 weights, device types, and the device rules
 # --------------------------------------------------------------------------
 
-def test_data_parallel_export_is_refused(tiny, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A, item 3"):
-        export_poco(tiny["model"], tiny["smpl"], str(tmp_path / "dp"), batch_sizes=(8,),
-                    data_parallel=8, device="cpu")
+DP_BUCKETS = (2, 4, 8)
+
+
+@pytest.fixture(scope="module")
+def dp_artifacts(tiny, tmp_path_factory):
+    """The tiny float artifact at DP_BUCKETS, single and data_parallel=2."""
+    root = tmp_path_factory.mktemp("exported_dp")
+    single, dp = str(root / "single"), str(root / "dp2")
+    export_poco(tiny["model"], tiny["smpl"], single, batch_sizes=DP_BUCKETS, device="cpu")
+    export_poco(tiny["model"], tiny["smpl"], dp, batch_sizes=DP_BUCKETS, data_parallel=2,
+                device="cpu")
+    return single, dp
+
+
+def assert_jax_dp_bars(got: dict, want: dict) -> None:
+    """tests/test_export.py:174-179's bars for a data-parallel artifact."""
+    assert sorted(got) == sorted(want)
+    np.testing.assert_allclose(got["pred_pose"], want["pred_pose"], rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(got["smpl_vertices"], want["smpl_vertices"], atol=1e-5)
+
+
+def test_data_parallel_export_is_refused(tiny, dp_artifacts, tmp_path):
+    """A data-parallel export: a bucket that does not divide by the
+    replica count is refused (JAX's "not divisible"); meta records the
+    count and lists the export device type only, as the JAX meta lists
+    its export platform."""
+    with pytest.raises(ValueError, match="not divisible"):
+        export_poco(tiny["model"], tiny["smpl"], str(tmp_path / "dp"), batch_sizes=(2, 3),
+                    data_parallel=2, device="cpu")
+    meta = json.loads((Path(dp_artifacts[1]) / "meta.json").read_text())
+    assert meta["data_parallel"] == 2 and meta["platforms"] == ["cpu"]
+    assert json.loads((Path(dp_artifacts[0]) / "meta.json").read_text())["data_parallel"] is None
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 11])
+def test_data_parallel_artifact_matches_single(dp_artifacts, n):
+    """Two named replicas on the CPU against the single artifact: 1 and 3
+    pad into the 2- and 4-bucket (1 and 2 rows a replica), 8 fills the
+    8-bucket, 11 chunks 8 + 3. Rows come back in order."""
+    single, dp = dp_artifacts
+    loaded = load_exported(dp, devices=["cpu", "cpu"])
+    assert [str(d) for d in loaded.devices] == ["cpu", "cpu"]
+    assert len(loaded._replicas) == 2
+    assert loaded._replicas[0].program is not loaded._replicas[1].program
+    batch = seeded_batch(n, seed=40 + n, uint8=False)
+    got = loaded.predict(batch)
+    assert got["pred_pose"].shape[0] == n
+    assert_jax_dp_bars(got, load_exported(single, device="cpu").predict(batch))
+
+
+def test_data_parallel_replicas_are_refused_when_too_few(dp_artifacts):
+    """No silent collapse to one replica: the CPU is one device, so two
+    replicas run there only where they are named; too few names, or the
+    card on a host without one, are refused."""
+    dp = dp_artifacts[1]
+    with pytest.raises(ValueError, match="needs 2 devices, host has 1"):
+        load_exported(dp, device="cpu")
+    with pytest.raises(ValueError, match="2 replica"):
+        load_exported(dp, devices=["cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_exported(dp, devices=["cuda", "cuda"])
+
+
+def test_data_parallel_export_cli(tmp_path):
+    """`cli.export --data_parallel 2 --dp_platform cpu` (the JAX tool's
+    flags) writes a two-replica CPU artifact that serves on named CPU
+    replicas."""
+    out = str(tmp_path / "dp")
+    export_cli.main(["--cfg", TINY_YAML, "--out", out, "--batch-sizes", "2,4",
+                     "--data_parallel", "2", "--dp_platform", "cpu", "--dtype", "fp32",
+                     "--smpl_dir", str(tmp_path / "no_smpl")])
+    loaded = load_exported(out, devices=["cpu", "cpu"])
+    assert loaded.meta["data_parallel"] == 2 and loaded.meta["platforms"] == ["cpu"]
+    assert loaded.predict(seeded_batch(3, 7, uint8=False))["pred_pose"].shape == (3, 24, 3, 3)
 
 
 def test_bf16_export_is_refused(tiny, tmp_path):
+    """bf16 weights are still refused, with the way to a bf16 artifact in
+    the error: fp32 weights, dtype="bf16" (tests/test_torch_precision.py
+    holds such an artifact, and `cli.export --dtype bf16`, to JAX's)."""
     model = POCO(PocoConfig(**TINY)).eval().to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="Export the fp32 model with dtype='bf16'"):
         export_poco(model, tiny["smpl"], str(tmp_path / "bf16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        export_cli.main(["--cfg", TINY_YAML, "--out", str(tmp_path / "cli"),
-                         "--dtype", "bf16", "--device", "cpu"])
 
 
-def test_cross_platform_export_is_refused(tiny, tmp_path):
-    with pytest.raises(NotImplementedError, match="another platform"):
-        export_poco(tiny["model"], tiny["smpl"], str(tmp_path / "x"), platforms=("cpu", "cuda"),
+def test_cross_platform_export_is_refused(tiny, artifact, tmp_path, monkeypatch):
+    """Platforms: the default lists both device types, an export must
+    list its own device's and no other than cpu and cuda, and every load
+    moves the program to its device through `move_to_device_pass` (here
+    from the CPU to the CPU) and gives what the eager forward gives."""
+    from torch.export import passes
+
+    meta = json.loads((Path(artifact) / "meta.json").read_text())
+    assert meta["platforms"] == ["cpu", "cuda"]
+    with pytest.raises(ValueError, match="hold the export device's type"):
+        export_poco(tiny["model"], tiny["smpl"], str(tmp_path / "x"), platforms=("cuda",),
                     device="cpu")
+    with pytest.raises(ValueError, match="must be of"):
+        export_poco(tiny["model"], tiny["smpl"], str(tmp_path / "x"), platforms=("cpu", "tpu"),
+                    device="cpu")
+    moved = []
+    real = passes.move_to_device_pass
+    monkeypatch.setattr(passes, "move_to_device_pass",
+                        lambda ep, location: moved.append(str(location)) or real(ep, location))
+    loaded = load_exported(artifact, device="cpu")
+    assert moved == ["cpu"]
+    batch = seeded_batch(2, seed=8, uint8=False)
+    assert_equal(loaded.predict(batch), eager(tiny["model"], tiny["smpl"], batch))
 
 
 def test_artifact_of_another_device_type_is_refused(artifact, tmp_path):
-    """A program holds its export device's tensors: an artifact recorded
-    as exported on the card is refused on the CPU, before its program is
-    read, and no CPU artifact is taken where the card is asked for."""
+    """A device type that the artifact's platforms do not list is refused
+    before its program is read: an artifact exported on the card for the
+    card alone is refused on the CPU, and no CPU artifact is taken where
+    the card is asked for on a host without one."""
     moved = tmp_path / "from_the_card"
     shutil.copytree(artifact, moved)
     meta = json.loads((moved / "meta.json").read_text())
-    meta["device"] = "cuda"
+    meta["device"], meta["platforms"] = "cuda", ["cuda"]
     (moved / "meta.json").write_text(json.dumps(meta))
     (moved / PROGRAM_NAME).unlink()
-    with pytest.raises(ValueError, match="exported on cuda"):
+    with pytest.raises(ValueError, match="exported on cuda for the device types"):
         ExportedPoco(str(moved), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -394,7 +489,8 @@ def test_export_cli_defaults_resolve():
 
     args = export_cli.build_parser().parse_args(["--out", "/tmp/unused"])
     assert model_config_from_hparams(update_hparams(args.cfg)).backbone
-    assert args.device == "cuda" and args.dtype == "fp32"
+    assert args.device == "cuda" and args.dtype == "bf16"
+    assert args.platforms == "cpu,cuda" and args.dp_platform == "cpu"
 
 
 def test_export_cli_then_serve_cli(tmp_path, capsys):
@@ -403,7 +499,7 @@ def test_export_cli_then_serve_cli(tmp_path, capsys):
     one 2-crop request over HTTP."""
     out = str(tmp_path / "artifact")
     export_cli.main(["--cfg", TINY_YAML, "--out", out, "--batch-sizes", "2",
-                     "--uint8-input", "--smpl_dir", str(tmp_path / "no_smpl"),
+                     "--uint8-input", "--dtype", "fp32", "--smpl_dir", str(tmp_path / "no_smpl"),
                      "--device", "cpu"])
     assert f"exported {TINY_YAML}" in capsys.readouterr().out
     args = serve_cli.build_parser().parse_args(

@@ -5,7 +5,8 @@ scattering and error propagation, request validation and the uint8
 paths, the backpressure (429 over budget, the shed at `Expect:
 100-continue`, 503 at the handler cap), `latency_stats` beside a
 concurrent appender, the refusal to serve on a card that is not there,
-and `cli.bench_serving.run_combo` over loopback.
+`cli.bench_serving.run_combo` over loopback, a data-parallel artifact behind
+the server, and the bench's loopback, window-sweep and overload modes.
 """
 
 import io
@@ -451,3 +452,105 @@ class TestBackpressure:
             assert server.httpd.refused_count == 1
         finally:
             server.stop()
+
+
+class TestDataParallelServing:
+    def test_http_roundtrip_data_parallel(self, artifact, tmp_path):
+        """A data_parallel=2 artifact on two named CPU replicas behind the
+        unchanged server (JAX's test_http_roundtrip_data_parallel):
+        concurrent clients each get their own rows, equal to the single
+        artifact's `predict` within the JAX package's bars."""
+        torch.manual_seed(0)   # the `artifact` fixture's weights
+        model = POCO(PocoConfig(**TINY)).eval()
+        dp_dir = str(tmp_path / "tiny_dp2")
+        export_poco(model, synthetic_smpl_model(num_verts=96, device="cpu"), dp_dir,
+                    batch_sizes=(4, 8), data_parallel=2, device="cpu")
+        loaded = load_exported(dp_dir, devices=["cpu", "cpu"])
+        single = load_exported(artifact, device="cpu")
+        server = PocoServer(loaded, port=0, batch_window_ms=20.0).start(warmup=True)
+        try:
+            base = f"http://127.0.0.1:{server.port}"
+            assert health(base)["buckets"] == [4, 8]
+            rng = np.random.RandomState(11)
+            crops = [rng.randn(n, 224, 224, 3).astype(np.float32) for n in (3, 1, 2)]
+            got = [None] * len(crops)
+
+            def fetch(i):
+                got[i] = np.load(io.BytesIO(post(base, npz(img=crops[i]))))
+
+            threads = [threading.Thread(target=fetch, args=(i,)) for i in range(len(crops))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            for i, c in enumerate(crops):
+                want = single.predict(prepare_request_batch(single, {"img": c}))
+                assert got[i]["pred_pose"].shape == (len(c), 24, 3, 3)
+                np.testing.assert_allclose(got[i]["pred_pose"], want["pred_pose"],
+                                           rtol=2e-5, atol=1e-5)
+                np.testing.assert_allclose(got[i]["smpl_vertices"], want["smpl_vertices"],
+                                           atol=1e-5)
+        finally:
+            server.stop()
+
+
+# the JAX tool's overload row (tools/bench_serving.py:266-294)
+OVERLOAD_KEYS = {
+    "scenario", "clients", "crops_per_request", "duration_s", "accepted", "rejected",
+    "rejected_by_code", "accepted_crops_per_s", "accepted_p50_ms", "accepted_p99_ms",
+    "shed_p50_ms", "shed_p99_ms", "retry_after_s_median", "conn_resets",
+    "expect_probes_shed", "expect_shed_p50_ms", "expect_shed_p99_ms", "pending_rows_hwm",
+    "budget_rows", "rss_peak_delta_mb", "refused_at_accept", "flood",
+}
+COMBO_KEYS = {"window_ms", "clients", "crops_per_request", "requests", "p50_ms", "p99_ms",
+              "crops_per_s", "dispatches", "coalescence", "wall_s"}
+
+
+class TestBenchServingModes:
+    """`cli.bench_serving`'s modes, with the JAX tool's JSON keys, each a
+    few seconds on the CPU."""
+
+    def test_loopback_repeats(self, capsys):
+        """--loopback (tiny-cliff, fp32, the CPU, in-process) with
+        --repeats 2: a row a run, then the median and spread row."""
+        rows = bench_serving.main(["--loopback", "--repeats", "2", "--combos", "2x1",
+                                   "--requests-per-client", "2", "--buckets", "1,2"])
+        assert [r.get("run") for r in rows] == [0, 1, None]
+        for row in rows[:2]:
+            assert COMBO_KEYS <= set(row) and row["device"] == "cpu" and row["requests"] == 4
+        summary = rows[2]
+        assert summary["combo"] == "2x1" and summary["loopback"] is True
+        assert summary["verdict"] in ("clean", "outliers_replaced", "unstable")
+        assert summary["median_crops_per_s"] == float(np.median(summary["runs"]))
+        assert summary["spread_pct"] >= 0
+        printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+        assert [p["device"] for p in printed] == ["cpu"] * 3
+
+    def test_sweep_window(self, artifact):
+        rows = bench_serving.main(["--artifact", artifact, "--device", "cpu",
+                                   "--sweep-window", "0,5", "--sweep-combo", "2x1",
+                                   "--requests-per-client", "2"])
+        assert [r["window_ms"] for r in rows] == [0.0, 5.0]
+        assert all(COMBO_KEYS <= set(r) and r["requests"] == 4 for r in rows)
+
+    def test_overload_against_a_server_subprocess(self, artifact, monkeypatch):
+        """--overload --server-subproc: `python -m poco_tpu_torch.cli.serve`
+        in a process of its own, a row budget of 4 crops flooded by 8
+        clients of 2 crops for 1 s, twice (the counters reset between):
+        rejections come, each a 429 or 503 with a Retry-After, and the
+        server's pending rows never passed its budget."""
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+        rows = bench_serving.main([
+            "--artifact", artifact, "--device", "cpu", "--overload", "--server-subproc",
+            "--max-pending-rows", "4", "--overload-clients", "8", "--overload-crops", "2",
+            "--overload-duration", "1", "--overload-floods", "2"])
+        assert [r["flood"] for r in rows] == [0, 1]
+        for row in rows:
+            assert OVERLOAD_KEYS <= set(row), OVERLOAD_KEYS - set(row)
+            assert row["scenario"] == "overload" and row["budget_rows"] == 4
+            assert row["rejected"] > 0 and row["accepted"] > 0
+            assert set(row["rejected_by_code"]) <= {429, 503}
+            assert row["rejected_without_retry_after"] == 0
+            assert row["retry_after_s_median"] >= 1
+            assert row["pending_rows_hwm"] <= row["budget_rows"]
+            assert row["rss_peak_delta_mb"] >= 0
