@@ -23,7 +23,12 @@ Phases, each of which raises (exit code 1) on failure:
      SMPL answers `detect_forward` requests of 1, 8 and 128 boxes on a
      720x1280 image; `skinning` must launch once per request and
      `skinning_simt` never; a 2-box request is held against the same
-     weights on the CPU;
+     weights on the CPU; a 128-box request with a NaN centre and an
+     infinite scale (`nonfinite_request`) answers, its other rows bitwise
+     those of the request with the two boxes finite, the two NaN where
+     the CPU's are, and a 1-box request is the same before and after it;
+     the port's other indices taken from data run on NaN and infinite
+     inputs and agree with the CPU (`nonfinite_indices`);
   4b. POCO-PARE (HRNet-W32, PARE head, feat-pose uncertainty, 3-layer
      flow; configs/poco_pare.yaml) the same way: requests of 1, 8 and 128
      boxes, launches, shapes, card against CPU (the vertices against the
@@ -257,6 +262,11 @@ Phases, each of which raises (exit code 1) on failure:
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
      autograd through the plain forward.
+Every phase boundary (`mark`) synchronizes with the card and names
+itself in a CUDA fault's message: a device-side assert surfaces at the
+first synchronization after the kernel that raised it. 4j has boundaries
+of its own: after its image read (nvJPEG decodes on 8 threads) and after
+each of (a)-(d).
 The yardsticks never launch on the main paths (checked in 4-4r, in
 every rank). The line before the last is the kernels' JSON record
 (`skinning`, `skinning_simt`, `skinning_backward`,
@@ -315,6 +325,8 @@ from poco_tpu_torch.eval.runner import (
     pw3d_split_report,
     run_eval,
 )
+from poco_tpu_torch.losses.segmentation import part_segmentation_loss
+from poco_tpu_torch.models.layers import get_heatmap_preds, grid_sample_bilinear
 from poco_tpu_torch.models.poco import (
     build_hmr,
     build_poco_cliff,
@@ -324,7 +336,7 @@ from poco_tpu_torch.models.poco import (
 from poco_tpu_torch.ops import kernels
 from poco_tpu_torch.ops.camera import crop_cam_to_full_img_cam, weak_perspective_to_perspective
 from poco_tpu_torch.ops.preprocess import normalize_image, preprocess_crops
-from poco_tpu_torch.ops.rotation import average_rotmats, axis_angle_to_rotmat
+from poco_tpu_torch.ops.rotation import average_rotmats, axis_angle_to_rotmat, rotmat_to_quat
 from poco_tpu_torch.ops.skinning import (
     skinning,
     skinning_backward,
@@ -333,6 +345,7 @@ from poco_tpu_torch.ops.skinning import (
     skinning_reference,
     skinning_simt,
 )
+from poco_tpu_torch.ops.soft_raster import soft_part_probs
 from poco_tpu_torch.runtime import loader as image_loader
 from poco_tpu_torch.runtime.export import export_poco, load_exported
 from poco_tpu_torch.runtime.server import PocoServer, prepare_request_batch
@@ -388,6 +401,23 @@ EVAL_LAUNCHES = {False: 5, True: 7}   # skinning launches an eval batch, by flip
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise RuntimeError(message)
+
+
+RUN_START = time.perf_counter()
+
+
+def mark(label: str) -> None:
+    """Where the run stands, so that each phase's share of the time limit
+    shows. It synchronizes with the card first: a kernel's fault (a
+    device-side assert) surfaces at the first synchronization after it,
+    so the fault is raised again here, named after the work that ended
+    at this boundary, and the run still fails."""
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as err:   # torch.AcceleratorError is one
+        raise RuntimeError(f"CUDA fault in the work of {label} (the last boundary "
+                           f"before it synchronized): {err}") from err
+    print(f"-- {label} done, {time.perf_counter() - RUN_START:.1f} s into the run", flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
@@ -873,8 +903,124 @@ def phase_main_path(seed: int) -> dict:
     c2, s2 = random_boxes(rng, 2, h, w)
     card_vs_cpu("cliff", model, build_poco_cliff, smpl, image, c2, s2,
                 ("pred_cam", "pred_shape", "var_pose"))
+    nonfinite_counts = nonfinite_request(model, smpl, image, seed)
+    nonfinite_indices()
     return {"counts": counts, "model": model, "smpl": smpl, "image": image,
-            "requests": requests, "request": requests[-1], "calib": calib, "rng": rng}
+            "requests": requests, "request": requests[-1], "calib": calib, "rng": rng,
+            "nonfinite_counts": nonfinite_counts}
+
+
+NAN_ROW, INF_ROW = 17, 90   # the non-finite boxes of phase 4's 128-box request
+
+
+def nonfinite_request(model, smpl, image, seed: int) -> Counter:
+    """Phase 4's non-finite request: 128 boxes through `detect_forward`,
+    one with a NaN centre and one with an infinite scale, between a
+    1-box request and the same request again, and beside the 128 boxes
+    with those two finite. The process must live on (the crop gather
+    used to index out of range there: a device-side assert); every other
+    row bitwise equal to the finite request's (else within HEAD_TOL /
+    METERS_TOL, stated); the two rows NaN where the CPU's are; the 1-box
+    request the same before and after; `skinning` once a request. Its
+    boxes come from a generator of their own: the rest of the run draws
+    what it drew before."""
+    h, w = image.shape[:2]
+    centers, scales = random_boxes(np.random.RandomState(seed + 90), 128, h, w)
+    bad_c, bad_s = centers.copy(), scales.copy()
+    bad_c[NAN_ROW] = np.nan
+    bad_s[INF_ROW] = np.inf
+    reset_counts()
+    before = detect_forward(model, smpl, image, centers[:1], scales[:1])
+    finite = detect_forward(model, smpl, image, centers, scales)
+    bad = detect_forward(model, smpl, image, bad_c, bad_s)
+    after = detect_forward(model, smpl, image, centers[:1], scales[:1])
+    torch.cuda.synchronize()
+    counts = read_counts("cliff non-finite")
+    keys = sorted(k for k, v in bad.items() if torch.is_tensor(v))
+    rows = [r for r in range(len(centers)) if r not in (NAN_ROW, INF_ROW)]
+    unequal = {k: float((bad[k][rows] - finite[k][rows]).abs().max()) for k in keys
+               if not torch.equal(bad[k][rows], finite[k][rows])}
+    print(f"cliff non-finite request (128 boxes, row {NAN_ROW} a NaN centre, row {INF_ROW} an "
+          f"infinite scale): the process lives; the other 126 rows against the finite "
+          f"request: {len(keys) - len(unequal)} of {len(keys)} keys bitwise equal"
+          + (f", the rest largest difference {unequal}" if unequal else ""))
+    check(counts["skinning"] == 4, f"cliff non-finite: skinning must launch once per request, "
+          f"launched {dict(counts)} for 4")
+    for k, err in unequal.items():
+        bar = METERS_TOL if k in ("smpl_vertices", "smpl_joints3d") else HEAD_TOL
+        check(err <= bar, f"cliff non-finite: {k} of the finite rows moved by {err} (bar {bar})")
+    check(all(torch.equal(before[k], after[k]) for k in keys),
+          "cliff non-finite: the 1-box request changed after the non-finite one")
+    check_shapes(after, 1, {"pred_fullimg_cam_t": (1, 3), "var_pose": (1, 24)})
+
+    cpu_model = build_poco_cliff(device="cpu", **dataclasses.asdict(model.cfg))
+    cpu_model.load_state_dict(model.state_dict())
+    pick = [NAN_ROW, INF_ROW, 0]
+    on_cpu = detect_forward(cpu_model, smpl.to("cpu"), image, bad_c[pick], bad_s[pick])
+    nan_keys = []
+    for k in keys:
+        card_nan = torch.isnan(bad[k][pick].cpu())
+        check(torch.equal(card_nan, torch.isnan(on_cpu[k])),
+              f"cliff non-finite: {k} is NaN elsewhere on the card than on the CPU")
+        if bool(card_nan[:2].all()):
+            nan_keys.append(k)
+    print(f"cliff non-finite rows: NaN where the CPU's are on all {len(keys)} keys (wholly NaN "
+          f"on {len(nan_keys)}: {nan_keys}); launches {dict(counts)}")
+    return counts
+
+
+def nonfinite_indices() -> None:
+    """The port's other device indices taken from data, on the card with
+    NaN and infinite inputs, against the CPU (tests/test_torch_ops.py
+    holds the CPU to the JAX package): `rotmat_to_quat`'s candidate pick,
+    the hard heatmap argmax, PARE's `grid_sample`, and the part labels
+    (argmax of `soft_part_probs`) that `part_segmentation_loss` gathers
+    at. Each must run; values finite on both sides within 1e-5; NaN where
+    the CPU's is, but for `grid_sample`, where the card also gives NaN at
+    a point 1e30 out, which the CPU and JAX sample as zeros (PARE's
+    keypoints come from a soft argmax: in [-1, 1], or NaN); the labels in
+    [0, 25), the loss on them as the CPU's."""
+    gen = torch.Generator().manual_seed(5)
+    rot = torch.eye(3).repeat(4, 1, 1)
+    rot[1], rot[2, 0, 1], rot[3, 1, 1] = float("nan"), float("nan"), float("inf")
+    hm = torch.randn(2, 3, 5, 6, generator=gen)
+    hm[0, 1], hm[1, 2, 2, 3] = float("nan"), float("inf")
+    feats, uv = torch.randn(2, 4, 5, 6, generator=gen), torch.rand(2, 5, 2, generator=gen) * 2 - 1
+    uv[0, 1], uv[0, 2, 0], uv[1, 3] = float("nan"), float("inf"), 1e30
+    verts = 0.3 * torch.randn(3, 40, 3, generator=gen)
+    verts[1], verts[2, 5] = float("nan"), float("inf")
+    cam = torch.tensor([[0.9, 0.0, 0.0]]).expand(3, 3)
+    parts = torch.eye(24)[torch.randint(0, 24, (40,), generator=gen)]
+    logits = 3 * torch.randn(3, 25, 16, 16, generator=gen)
+    probs = soft_part_probs(verts.cuda(), cam.cuda(), parts.cuda(), out_res=16)
+    labels = probs.argmax(-1)
+
+    def run(device):
+        return {"rotmat_to_quat": rotmat_to_quat(rot.to(device)),
+                "get_heatmap_preds": torch.cat(
+                    [t.flatten() for t in get_heatmap_preds(hm.to(device))]),
+                "grid_sample_bilinear": grid_sample_bilinear(feats.to(device), uv.to(device)),
+                "soft_part_probs": soft_part_probs(verts.to(device), cam.to(device),
+                                                   parts.to(device), out_res=16),
+                "part_segmentation_loss": part_segmentation_loss(logits.to(device),
+                                                                 labels.to(device))}
+
+    on_card, on_cpu = run("cuda"), run("cpu")
+    torch.cuda.synchronize()
+    for name, got in on_card.items():
+        got, want = got.cpu(), on_cpu[name]
+        both = torch.isfinite(got) & torch.isfinite(want)
+        close = torch.allclose(got[both].double(), want[both].double(), rtol=0, atol=1e-5)
+        same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+        apart = (torch.isnan(got) != torch.isnan(want)).nonzero().tolist()
+        print(f"non-finite inputs, {name}: finite values {'agree' if close else 'DISAGREE'}; "
+              f"NaN {int(torch.isnan(got).sum())} of {got.numel()} on the card, "
+              f"{int(torch.isnan(want).sum())} on the CPU"
+              + (f" (NaN on one side only at {apart[:8]})" if apart else ""))
+        check(close and (same_nan or name == "grid_sample_bilinear"),
+              f"non-finite inputs, {name}: the card and the CPU disagree")
+    print(f"non-finite inputs, part labels: in [{int(labels.min())}, {int(labels.max())}]")
+    check(0 <= int(labels.min()) and int(labels.max()) < 25, "part labels out of [0, 25)")
 
 
 def phase_pare(ctx: dict, seed: int) -> dict:
@@ -3384,6 +3530,7 @@ def phase_dist(ctx: dict, seed: int, card: str) -> dict[str, Counter]:
         one.update(dist_eval(trainer.model, seed, "one"))
         del trainer
         torch.cuda.empty_cache()
+        mark("phase 4i's runs")
         axis_counts = phase_model_axis(ranks, tmp, seed, card)
 
     fit_want = {"skinning": TRAIN_LAUNCHES[0] * DIST_STEPS,
@@ -3939,7 +4086,9 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     images = images_in_folder(str(folder))   # the CLI's order
     fullhd = images.index(str(folder / FULLHD_JPEG.name))
     imgs = image_loader.read_images_rgb(images)
+    mark("4j's image read (nvJPEG decodes on 8 threads)")
     weights, threshold = demo_yolo(tmp, imgs, fullhd, seed, card)
+    mark("4j (a)")
 
     write_smpl_dir(tmp / "smpl", ctx["smpl"])
     torch.save(ctx["model"].state_dict(), tmp / "poco_cliff.pt")
@@ -4005,6 +4154,7 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
           f"with boxes); {len(images) / yolo_s:.2f} frames/s; "
           f"{stage_split(tester, len(images), 'frame')} on {card}")
     check(counts["demo_folder_yolo"]["skinning"] == expected, "folder yolo launches")
+    mark("4j (b)")
 
     frames = sorted(DEMO_VIDEO_DIR.glob("*.jpg"))
     print(f"-- 4j (c) cli.demo --mode video --smooth over {len(frames)} frames of "
@@ -4034,6 +4184,7 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     check(counts["demo_video"]["skinning"] == expected, "video launches")
     check(len(rendered) == len(frames) and len(log) == sum(lengths), "video outputs")
     check(all(np.isfinite(r["verts"]).all() for r in video.values()), "video verts not finite")
+    mark("4j (c)")
 
     print(f"-- 4j (d) cli.demo --mode webcam over the first {STREAM_FRAMES} frames of "
           f"{DEMO_VIDEO_DIR.relative_to(REPO)} (a replayed camera), --smooth, pipelined and "
@@ -4063,6 +4214,7 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     print(f"stream: the pipelined and the sequential runs' {STREAM_FRAMES} frames "
           f"{'are' if same else 'are NOT'} bit-identical")
     check(same, "the pipelined stream differs from the sequential one")
+    mark("4j (d)")
     counts.update(demo_drawing(tmp, tester, base, card))   # phase 4o
 
     # the kernel at the batches the demo launched it with, beside phase 3's
@@ -4507,7 +4659,6 @@ def main() -> int:
         return grid_rank(args.grid_rank, Path(args.dist_dir), args.seed)
     if args.export_job is not None:  # one of 4h's export processes
         return export_job(args.export_job, Path(args.dist_dir))
-    run_start = time.perf_counter()
     # The card's host sets PYTHONDONTWRITEBYTECODE and its site-packages is
     # read-only, so every process this run starts compiled torch's sources
     # again: one shared bytecode cache in the checkout's build directory
@@ -4515,20 +4666,20 @@ def main() -> int:
     os.environ["PYTHONPYCACHEPREFIX"] = str(REPO / "poco_tpu_torch" / "_build" / "pycache")
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
-    def mark(label: str) -> None:
-        """Where the run stands, so that each phase's share of the time
-        limit shows."""
-        print(f"-- {label} done, {time.perf_counter() - run_start:.1f} s into the run", flush=True)
-
     card, peaks = phase_environment()
     phase_build()
     errs = phase_kernel_check()
     mark("phases 1-3")
     ctx = phase_main_path(args.seed)
+    paths = {"cliff": ctx["counts"], "cliff_nonfinite": ctx["nonfinite_counts"]}
+    mark("phase 4")
     pare = phase_pare(ctx, args.seed)
-    paths = {"cliff": ctx["counts"], "pare": pare["counts"],
-             "flow": phase_flow(ctx, pare, args.seed), "hmr": phase_hmr(ctx, args.seed)}
-    mark("phases 4-4d")
+    paths["pare"] = pare["counts"]
+    mark("phase 4b")
+    paths["flow"] = phase_flow(ctx, pare, args.seed)
+    mark("phase 4c")
+    paths["hmr"] = phase_hmr(ctx, args.seed)
+    mark("phase 4d")
     evaluation = phase_eval(ctx, pare, args.seed, card)
     paths["eval"] = evaluation["counts"]
     mark("phase 4e")
@@ -4546,12 +4697,15 @@ def main() -> int:
     demo_counts, demo_err = phase_demo(ctx, args.seed, card)
     paths.update(demo_counts)
     errs["v2"] = max(errs["v2"], demo_err)
+    mark("phases 4j, 4o")
     phase_crop(args.seed, card)
-    mark("phases 4j, 4o, 4p")
+    mark("phase 4p")
     paths.update(phase_render_losses(ctx, pare, train, card))
+    mark("phase 4k")
     paths["train_images"] = phase_train_images(ctx, train, card)
+    mark("phase 4l")
     phase_launchers(card)
-    mark("phases 4k-4m")
+    mark("phase 4m")
     paths.update(phase_tools(ctx, card))
     mark("phase 4q")
     paths.update(phase_precision(ctx, pare, train, card))

@@ -68,9 +68,12 @@ def bilinear_sample_image(
     wy = (ys - y0)[..., None]
 
     def tap(yi, xi):
+        # NaN passes `clamp` and casts to -2^63: map it to 0 first (as
+        # XLA's cast does), so a non-finite box reads pixels in range and
+        # its NaN weights make its crop NaN, as in the JAX package
         valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
-        xc = xi.clamp(0, w - 1).long()
-        yc = yi.clamp(0, h - 1).long()
+        xc = torch.nan_to_num(xi, nan=0.0).clamp(0, w - 1).long()
+        yc = torch.nan_to_num(yi, nan=0.0).clamp(0, h - 1).long()
         return flat[yc * w + xc] * valid[..., None]
 
     return (

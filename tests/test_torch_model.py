@@ -230,9 +230,17 @@ def test_uncert_head_refuses_unported_modes(mode, neurons, kwargs):
 
 @pytest.fixture(scope="module")
 def narrow():
-    """The narrow POCO-CLIFF pair (`narrow_models`)."""
+    """The narrow POCO-CLIFF pair (`narrow_models`) and the JAX request
+    program, compiled once for the file."""
     with pytest.MonkeyPatch.context() as mp:
-        yield narrow_models(mp, "cliff")
+        pair = narrow_models(mp, "cliff")
+        yield pair | {"jax_request": _jax_request(pair["jax_model"])}
+
+
+def _jax_request(jax_model):
+    """The JAX package's request: `preprocess_crops` + `POCO.apply`, jitted."""
+    return jax.jit(lambda v, im, hw, c, s, sm: jax_model.apply(
+        v, jax_preprocess_crops(im, c, s, true_hw=hw), sm, train=False))
 
 
 def _request(seed):
@@ -255,23 +263,41 @@ SLICE_TOLERANCES = {
     "smpl_vertices": 1e-4, "smpl_joints3d": 1e-4, "smpl_joints2d": 1e-2,
 }
 
+# A request's second box made non-finite: (centre, scale) of that row.
+NON_FINITE_BOXES = {
+    "nan_center": ((np.nan, np.nan), 0.5),
+    "inf_scale": ((40.0, 200.0), np.inf),
+}
 
-def _check_slice(model, jax_model, smpl, jax_smpl):
+
+def _check_slice(model, jax_model, smpl, jax_smpl, jax_request=None, bad=None):
+    """With `bad` (a key of NON_FINITE_BOXES) the request's second box is
+    non-finite: both sides must answer, with NaN in the same places of
+    every output (the JAX model keeps a box's NaN in its own row), and
+    every other value within SLICE_TOLERANCES."""
     image, centers, scales, true_hw = _request(3)
+    if bad is not None:
+        centers[1], scales[1] = NON_FINITE_BOXES[bad]
     port = detect_forward(model, smpl, image, centers, scales, true_hw)
     variables = jax_variables(model)
-    fwd = jax.jit(lambda v, im, hw, c, s, sm: jax_model.apply(
-        v, jax_preprocess_crops(im, c, s, true_hw=hw), sm, train=False))
+    fwd = jax_request or _jax_request(jax_model)
     ref = fwd(variables, jnp.asarray(image), jnp.asarray(true_hw), jnp.asarray(centers),
               jnp.asarray(scales), jax_smpl)
     assert set(port) == set(ref)
     assert port["log_phi"] is None and ref["log_phi"] is None
     assert set(SLICE_TOLERANCES) == {k for k in port if k != "log_phi"}
+    for key in SLICE_TOLERANCES:
+        nan_rows = np.isnan(np.asarray(ref[key])).reshape(len(centers), -1).any(axis=1)
+        assert list(nan_rows) == [bad is not None and i == 1 for i in range(3)], key
+        np.testing.assert_array_equal(np.isnan(port[key].numpy()), np.isnan(np.asarray(ref[key])),
+                                      err_msg=key)
     _assert_outputs_close(port, ref, SLICE_TOLERANCES)
 
 
-def test_slice_detect_forward_matches_jax(narrow):
-    _check_slice(narrow["model"], narrow["jax_model"], narrow["smpl"], narrow["jax_smpl"])
+@pytest.mark.parametrize("bad", [None, *NON_FINITE_BOXES])
+def test_slice_detect_forward_matches_jax(narrow, bad):
+    _check_slice(narrow["model"], narrow["jax_model"], narrow["smpl"], narrow["jax_smpl"],
+                 narrow["jax_request"], bad)
 
 
 @pytest.mark.slow
