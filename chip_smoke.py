@@ -125,7 +125,7 @@ Phases, each of which raises (exit code 1) on failure:
      with a lowered `conf_threshold` (random weights score near 0.25),
      images/s; (b) `cli.demo --mode folder` with POCO-CLIFF (phase 4's
      weights through --ckpt, its V=6890 SMPL through --smpl_dir) over the
-     first 16 smoke JPEGs and the full-HD frame, `--detector refine --sideview
+     first 11 smoke JPEGs and the full-HD frame, `--detector refine --sideview
      --save_obj` then `--detector yolo`: one PNG an image of its width
      (twice with the side view), `skinning` twice a frame (refine) or
      once a frame with boxes (yolo), the mesh drawn by a fixed in-frame
@@ -135,11 +135,22 @@ Phases, each of which raises (exit code 1) on failure:
      --mode video --smooth` over `tests/data/torch_video/` (16 shifting
      960x540 crops of the full-HD JPEG): tracking, inference, smoothing,
      16 rendered frames, the uncertainty log, `skinning` 2 tracking
-     dispatches + one a chunk and one a smoothed track; (d) `cli.demo
+     dispatches + one a chunk and one a smoothed track + the warm-up's
+     forwards at the frame's size and the tracking pass's; (d) `cli.demo
      --mode webcam --smooth` over the first 8 of those frames as a
      replayed camera, pipelined and `--stream_sequential` with one tester:
      fps and the end-to-end and model latencies (p50, p90), `skinning`
-     twice a frame, the two runs' frames bit-identical; the folder pass
+     twice a frame, the two runs' frames bit-identical; (e) Motion-JPEG
+     with neither cv2 nor ffmpeg on the host (`utils/mjpeg.py`): the 16
+     JPEGs stored unchanged in `clip.avi`, `--mode video --vid_file
+     clip.avi --smooth` on (c)'s tester (frames extracted byte-equal to
+     the sources, (c)'s launch count, every result bitwise (c)'s, the
+     written `clip_poco.avi` reading back a frame a rendered PNG), `--mode
+     webcam --display` over the first 8 served as an HTTP
+     multipart/x-mixed-replace stream on loopback, on (d)'s tester (its
+     PNGs bitwise (d)'s pipelined run's, `skinning` twice a frame, the
+     display notice once), `--detector maskrcnn` falling back with the JAX
+     demo's notice, and a camera index raising, naming cv2; the folder pass
      writes each input's own name, the JPEGs as JPEG (nvJPEG's encoder on
      the card's host): the full-HD frame's overlay, decoded by the port's
      loader, within 30 dB PSNR of the frame rendered again, and the
@@ -185,7 +196,7 @@ Phases, each of which raises (exit code 1) on failure:
      global batch of 8 against one process, the same way;
   4o. the demo's drawing flags and pose tracking, in 4j's tester: folder
      mode `--draw_keypoints` (every in-frame joint drawn), video mode
-     `--sideview --wireframe` over 8 frames (twice the width, the side
+     `--sideview --wireframe` over 4 frames (twice the width, the side
      view's caption box equal to cv2's, kept in
      tests/data/torch_caption_cv2.npz: the box exact, at most 0.5% of
      its pixels differing, by one grey level at most; a fixed-camera wireframe
@@ -196,7 +207,7 @@ Phases, each of which raises (exit code 1) on failure:
      and 128 boxes: the largest difference (within 1e-2 grey levels) and
      both times;
   4q. the tools (`python -m poco_tpu_torch.cli.<tool>`), at full width:
-     (a) `convergence_bench --which cliff` for 12 epochs (the tool's 150
+     (a) `convergence_bench --which cliff` for 11 epochs (the tool's 150
      cut) on a fresh synthetic `conv` set, in a process of its own: every
      logged loss term finite, val MPJPE at epoch 9 (and the best model's)
      within the tool's 120 mm, the 3D joint loss lower over epochs 10-11,
@@ -629,6 +640,16 @@ def phase_kernel_check() -> dict[str, float]:
     return worst
 
 
+LIBRARY_TOL = 1e-5   # the one-call einsum against the plain version
+
+
+def skinning_library(w, tfms, v_homog):
+    """The skinning forward as one PyTorch call: `torch.einsum` over the
+    weights, the transforms' top three rows and the posed vertices with a
+    1 appended (`v_homog`, made before the call)."""
+    return torch.einsum("vj,bjxy,bvy->bvx", w, tfms[:, :, :3, :], v_homog)
+
+
 def phase_kernel_timing(peaks: Peaks) -> dict:
     """v2 and v1 timed hot and cold at each shape, in turns v2, v1, v1,
     v2, beside the bound. It runs last: once a CUDA graph has been
@@ -647,6 +668,14 @@ def phase_kernel_timing(peaks: Peaks) -> dict:
             cold[label].append(cold_ms(fn, sets))
         plain_hot = hot_ms(skinning_reference, args, calls=40)
         plain_cold = cold_ms(skinning_reference, sets, calls=len(sets))
+        library = None
+        if times is None:  # the main path's largest request: the library call beside it
+            lib_args = args[:2] + [torch.cat([args[2], torch.ones_like(args[2][..., :1])], -1)]
+            lib_err = float((skinning_library(*lib_args) - skinning_reference(*args)).abs().max())
+            lib_sets = [[a.clone() for a in lib_args] for _ in sets]
+            library = {"hot": hot_ms(skinning_library, lib_args, calls=40),
+                       "cold": cold_ms(skinning_library, lib_sets, calls=len(lib_sets))}
+            del lib_sets
         del sets
         bound = skinning_bound(batch, num_verts, peaks)
         print(f"skinning B={batch} V={num_verts}: bound {bound['ms']:.5f} ms "
@@ -657,10 +686,19 @@ def phase_kernel_timing(peaks: Peaks) -> dict:
                 mean = statistics.fmean(ts)
                 print(f"  {label} {kind:4s} {mean:.5f} ms (turns {ts[0]:.5f}, "
                       f"{ts[1]:.5f}) = {bound['ms'] / mean:.3f} of bound")
-        print(f"  plain hot {plain_hot:.5f} ms, cold {plain_cold:.5f} ms; "
-              "no single PyTorch call computes it")
+        if library is None:
+            print(f"  plain hot {plain_hot:.5f} ms, cold {plain_cold:.5f} ms")
+        else:
+            print(f"  plain hot {plain_hot:.5f} ms, cold {plain_cold:.5f} ms; library "
+                  f"torch.einsum(\"vj,bjxy,bvy->bvx\") hot {library['hot']:.5f} ms, cold "
+                  f"{library['cold']:.5f} ms = {bound['ms'] / library['hot']:.3f} of bound, "
+                  f"max_abs_err against the plain version {lib_err:.3e} (tolerance "
+                  f"{LIBRARY_TOL})")
+            check(lib_err <= LIBRARY_TOL, f"the einsum disagrees with the plain version: {lib_err}")
         if times is None:  # the main path's largest request
             times = {
+                "library_ms": library["hot"],
+                "library_cold_ms": library["cold"],
                 "ms": statistics.fmean(hot["v2"]),
                 "cold_ms": statistics.fmean(cold["v2"]),
                 "earlier_ms": statistics.fmean(hot["v1"]),
@@ -976,10 +1014,10 @@ def nonfinite_indices() -> None:
     the hard heatmap argmax, PARE's `grid_sample`, and the part labels
     (argmax of `soft_part_probs`) that `part_segmentation_loss` gathers
     at. Each must run; values finite on both sides within 1e-5; NaN where
-    the CPU's is, but for `grid_sample`, where the card also gives NaN at
-    a point 1e30 out, which the CPU and JAX sample as zeros (PARE's
-    keypoints come from a soft argmax: in [-1, 1], or NaN); the labels in
-    [0, 25), the loss on them as the CPU's."""
+    the CPU's is (`grid_sample` too: the point 1e30 out, which the card
+    sampled as NaN before `grid_sample_bilinear` clamped finite points to
+    just outside the map, is zero on both sides); the labels in [0, 25),
+    the loss on them as the CPU's."""
     gen = torch.Generator().manual_seed(5)
     rot = torch.eye(3).repeat(4, 1, 1)
     rot[1], rot[2, 0, 1], rot[3, 1, 1] = float("nan"), float("nan"), float("inf")
@@ -1017,8 +1055,7 @@ def nonfinite_indices() -> None:
               f"NaN {int(torch.isnan(got).sum())} of {got.numel()} on the card, "
               f"{int(torch.isnan(want).sum())} on the CPU"
               + (f" (NaN on one side only at {apart[:8]})" if apart else ""))
-        check(close and (same_nan or name == "grid_sample_bilinear"),
-              f"non-finite inputs, {name}: the card and the CPU disagree")
+        check(close and same_nan, f"non-finite inputs, {name}: the card and the CPU disagree")
     print(f"non-finite inputs, part labels: in [{int(labels.min())}, {int(labels.max())}]")
     check(0 <= int(labels.min()) and int(labels.max()) < 25, "part labels out of [0, 25)")
 
@@ -1996,8 +2033,9 @@ def phase_launchers(card: str) -> None:
 
 # -- the tools (phase 4q) ------------------------------------------------------
 
-TOOLS_EPOCHS = 12         # 4q's convergence budget (the tool's 150 cut; 20 before 4r joined the
-#                           run): the validation at epoch 9, two epochs past the freeze at 10
+TOOLS_EPOCHS = 11         # 4q's convergence budget (the tool's 150 cut; 20 before 4r joined the
+#                           run, 12 before 4j (e)): the validation at epoch 9, an epoch past
+#                           the freeze at 10
 TOOLS_MPJPE_MM = 120.0    # the tool's own --mpjpe_thresh, held at epoch 9
 TOOLS_STEPS = 10          # steps an epoch: 500 samples at configs/convergence.yaml's batch of 50
 TOOLS_LOG_INTERVAL = 10   # the recipe's LOG_SAVE_INTERVAL: the steps metrics.jsonl logs
@@ -3881,7 +3919,8 @@ YOLO_QUANTILE = 0.999     # the lowered threshold: this quantile of the first ba
 YOLO_TOPK = 8             # rows an image that reach NMS in the folder pass (200 by default)
 OVERLAY_SHARE = 0.01      # least share of a frame a fixed in-frame camera's mesh must change
 STREAM_FRAMES = 8         # frames of the webcam-replay stream, each run
-DEMO_SMOKE_IMAGES = 16    # the smoke JPEGs of 4j's folder passes (48 before 4q joined the run)
+DEMO_SMOKE_IMAGES = 11    # the smoke JPEGs of 4j's folder passes, YOLO_BATCH with the full-HD
+#                           one (48 before 4q joined the run, 16 before 4j (e))
 # cv2.imwrite (OpenCV 5.0.0) at its default quality 95 on tests/data/torch_fullhd.jpg
 # as cv2 decodes it: the re-encoded file's PSNR (tests/test_torch_demo.py checks it)
 FULLHD_CV2_PSNR = 45.0148
@@ -3977,7 +4016,6 @@ def demo_folder(label: str, argv: list[str], images: list[str], sideview: bool,
     and launches; one image an input under its name (a JPEG for a JPEG), of
     the input's width (twice with `sideview`), decoded by the port's loader."""
     args = cli_demo.parse_args(argv)
-    cli_demo.refuse_unported(args)
     tester = cli_demo.build_tester(args)
     if yolo_threshold is not None:
         tester.detector.conf_threshold = yolo_threshold
@@ -4162,7 +4200,6 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
           f"ffmpeg on PATH: {shutil.which('ffmpeg') is not None}")
     args = cli_demo.parse_args(base + ["--mode", "video", "--image_folder", str(DEMO_VIDEO_DIR),
                                        "--output_folder", str(tmp / "video"), "--smooth"])
-    cli_demo.refuse_unported(args)
     tester = cli_demo.build_tester(args)
     reset_counts()
     start = time.perf_counter()
@@ -4170,21 +4207,20 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     video_s = time.perf_counter() - start
     counts["demo_video"] = read_counts("demo video")
     lengths = [len(r["frame_ids"]) for r in video.values()]
-    tracking = math.ceil(len(frames) / 8)   # refine: 8 frames a dispatch
-    expected = tracking + sum(math.ceil(n / args.batch_size) for n in lengths) + len(lengths)
+    expected, why = video_launches(tester, frames, lengths, args.batch_size)
     batches |= {8, len(frames) % 8 or 8} | set(lengths) | {
         min(args.batch_size, n - s) for n in lengths for s in range(0, n, args.batch_size)}
     rendered = sorted((tmp / "video" / "rendered").glob("*.png"))
     log = (tmp / "video" / "uncertainty.log").read_text().splitlines()
     print(f"video: tracks of {lengths} frames; launches {dict(counts['demo_video'])} (expected "
-          f"skinning {expected}: {tracking} tracking dispatches, a chunk of {args.batch_size} "
-          f"a track, a smoothed track); {len(rendered)} frames rendered; {len(log)} log lines; "
+          f"skinning {expected}: {why}); {len(rendered)} frames rendered; {len(log)} log lines; "
           f"{len(frames) / video_s:.2f} frames/s; {stage_split(tester, len(frames), 'frame')} "
           f"on {card}")
     check(counts["demo_video"]["skinning"] == expected, "video launches")
     check(len(rendered) == len(frames) and len(log) == sum(lengths), "video outputs")
     check(all(np.isfinite(r["verts"]).all() for r in video.values()), "video verts not finite")
     mark("4j (c)")
+    video_tester = tester
 
     print(f"-- 4j (d) cli.demo --mode webcam over the first {STREAM_FRAMES} frames of "
           f"{DEMO_VIDEO_DIR.relative_to(REPO)} (a replayed camera), --smooth, pipelined and "
@@ -4196,7 +4232,6 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
             "--mode", "webcam", "--webcam_source", str(DEMO_VIDEO_DIR), "--smooth",
             "--max_frames", str(STREAM_FRAMES), "--output_folder", str(tmp / f"stream_{label}"),
             *flags])
-        cli_demo.refuse_unported(args)
         tester = tester or cli_demo.build_tester(args)   # one tester for both runs
         reset_counts()
         stats = cli_demo.run_webcam(args, tester)
@@ -4215,6 +4250,9 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
           f"{'are' if same else 'are NOT'} bit-identical")
     check(same, "the pipelined stream differs from the sequential one")
     mark("4j (d)")
+    counts.update(demo_live_sources(tmp, base, video_tester, video, tester,
+                                    streams["pipelined"], card))
+    mark("4j (e)")
     counts.update(demo_drawing(tmp, tester, base, card))   # phase 4o
 
     # the kernel at the batches the demo launched it with, beside phase 3's
@@ -4231,7 +4269,158 @@ def phase_demo(ctx: dict, seed: int, card: str) -> tuple[dict[str, Counter], flo
     return counts, worst
 
 
-DRAW_FRAMES = 8           # frames of phase 4o's video runs (the first of DEMO_VIDEO_DIR)
+def video_launches(tester, frames: list, lengths: list[int], batch_size: int) -> tuple[int, str]:
+    """`skinning` launches of a `cli.demo --mode video --smooth` run with
+    the refine detector over `frames`, whose tracks have `lengths` frames,
+    and how they add up."""
+    warm = len(tester.warmup_sizes(image_loader.image_size(str(frames[0]))))
+    tracking = math.ceil(len(frames) / 8)   # refine: 8 frames a dispatch
+    chunks = sum(math.ceil(n / batch_size) for n in lengths)
+    return warm + tracking + chunks + len(lengths), (
+        f"{warm} warm-up forwards, {tracking} tracking dispatches, {chunks} chunks of "
+        f"{batch_size}, {len(lengths)} smoothed tracks")
+
+
+def printed(fn, *args) -> tuple[object, str]:
+    """`fn(*args)` and what it printed (printed here too)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    print(out.getvalue(), end="")
+    return result, out.getvalue()
+
+
+DISPLAY_NOTICE = "--display requested but no GUI backend; skipping"   # the JAX tester's
+MASKRCNN_NOTICE = ("--detector maskrcnn: torchvision (or its pretrained weights) is unavailable "
+                   "in this environment; falling back to --detector yolo (TPU-native).")
+
+
+@contextlib.contextmanager
+def without_cv2():
+    """cv2 unimportable inside the block, as on a host without it (this
+    one may have it): the port then takes its Motion-JPEG routes."""
+    kept = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if kept is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = kept
+
+
+def demo_live_sources(tmp: Path, base: list[str], video_tester, video: dict, stream_tester,
+                      stream_pngs: dict[str, bytes], card: str) -> dict[str, Counter]:
+    """4j (e): the demo's video file and stream routes where neither cv2
+    nor ffmpeg is (Motion-JPEG, `utils/mjpeg.py`; cv2 hidden where the
+    host has it), on (c)'s and (d)'s testers: `--vid_file clip.avi`
+    against (c), an HTTP Motion-JPEG stream on loopback (with `--display`)
+    against (d)'s pipelined run, `--detector maskrcnn`, and a camera index
+    without cv2 and, where the host has cv2, with it."""
+    from poco_tpu_torch.utils.demo_utils import optional_cv2
+
+    cv2 = optional_cv2()
+    print(f"cv2 on this host: {cv2.__version__ if cv2 else 'does not import'}; hidden for the "
+          f"Motion-JPEG routes")
+    with without_cv2():
+        counts = motion_jpeg_routes(tmp, base, video_tester, video, stream_tester, stream_pngs,
+                                    card)
+    if cv2 is not None:   # the JAX package's route: no camera on this host
+        args = cli_demo.parse_args(base + ["--mode", "webcam", "--webcam_source", "0"])
+        try:
+            cli_demo.run_webcam(args, stream_tester)
+            raised = "nothing"
+        except RuntimeError as err:
+            raised = str(err)
+        print(f"--webcam_source 0 with cv2 {cv2.__version__}: {raised}")
+        check(raised.startswith("cannot open video capture 0"),
+              "a camera index with cv2 did not raise the JAX package's error")
+    return counts
+
+
+def motion_jpeg_routes(tmp: Path, base: list[str], video_tester, video: dict, stream_tester,
+                       stream_pngs: dict[str, bytes], card: str) -> dict[str, Counter]:
+    import shutil
+
+    from poco_tpu_torch.utils import mjpeg
+
+    frames = sorted(DEMO_VIDEO_DIR.glob("*.jpg"))
+    data = [p.read_bytes() for p in frames]
+    h, w = image_loader.image_size(str(frames[0]))
+    clip = tmp / "clip.avi"
+    mjpeg.write_avi_mjpeg(str(clip), data, 25, (w, h))
+    print(f"-- 4j (e) Motion-JPEG: {clip.name} ({len(data)} JPEGs of "
+          f"{DEMO_VIDEO_DIR.relative_to(REPO)} stored unchanged, {clip.stat().st_size} bytes, "
+          f"header {mjpeg.avi_frame_size(str(clip))}); ffmpeg on PATH: "
+          f"{shutil.which('ffmpeg') is not None}")
+    check(shutil.which("ffmpeg") is None,
+          "4j (e) holds the Motion-JPEG route, taken only where ffmpeg is not on PATH")
+    counts = {}
+
+    args = cli_demo.parse_args(base + ["--mode", "video", "--vid_file", str(clip),
+                                       "--output_folder", str(tmp / "video_avi"), "--smooth"])
+    reset_counts()
+    start = time.perf_counter()
+    got = cli_demo.run_video(args, video_tester)
+    seconds = time.perf_counter() - start
+    counts["demo_video_avi"] = read_counts("demo video avi")
+    extracted = sorted((tmp / "video_avi" / f"frames_{clip.stem}").glob("*.jpg"))
+    same_files = [p.read_bytes() for p in extracted] == data
+    lengths = [len(r["frame_ids"]) for r in got.values()]
+    expected, why = video_launches(video_tester, frames, lengths, args.batch_size)
+    differ = sorted(f"{pid}/{key}" for pid in video for key in video[pid]
+                    if pid not in got or key not in got[pid]
+                    or np.asarray(got[pid][key]).tobytes() != np.asarray(video[pid][key]).tobytes())
+    rendered = sorted((tmp / "video_avi" / "rendered").glob("*.png"))
+    written = tmp / "video_avi" / f"{clip.stem}_poco.avi"
+    read_back = len(list(mjpeg.read_avi_mjpeg(str(written)))) if written.exists() else 0
+    print(f"--vid_file {clip.name}: {len(extracted)} frames extracted, "
+          f"{'byte-equal to' if same_files else 'NOT equal to'} the sources; tracks of "
+          f"{lengths} frames; launches {dict(counts['demo_video_avi'])} (expected skinning "
+          f"{expected}: {why}); results against (c)'s: "
+          f"{'every key bitwise equal' if got.keys() == video.keys() and not differ else differ}; "
+          f"{written.name} reads back {read_back} frames of {len(rendered)} rendered; "
+          f"{len(frames) / seconds:.2f} frames/s with extraction on {card}")
+    check(same_files, "the extracted frames differ from the sources")
+    check(counts["demo_video_avi"]["skinning"] == expected, "video avi launches")
+    check(got.keys() == video.keys() and not differ, f"the AVI's results differ from (c)'s: {differ}")
+    check(read_back == len(rendered) == len(frames), "the written AVI does not read back")
+
+    with mjpeg.MjpegHttpServer(data[:STREAM_FRAMES]) as server:
+        args = cli_demo.parse_args(base + [
+            "--mode", "webcam", "--webcam_source", server.url, "--smooth", "--display",
+            "--max_frames", str(STREAM_FRAMES), "--output_folder", str(tmp / "stream_http")])
+        reset_counts()
+        stats, out = printed(cli_demo.run_webcam, args, stream_tester)
+        counts["demo_stream_http"] = read_counts("demo stream http")
+    pngs = {p.name: p.read_bytes() for p in sorted((tmp / "stream_http").glob("*.png"))}
+    print(f"stream {server.url} --display: {json.dumps(stats)}; launches "
+          f"{dict(counts['demo_stream_http'])} (expected skinning {2 * STREAM_FRAMES}); "
+          f"{len(pngs)} frames, {'bitwise equal to' if pngs == stream_pngs else 'NOT equal to'} "
+          f"(d)'s pipelined run; the display notice printed {out.count(DISPLAY_NOTICE)} times "
+          f"on {card}")
+    check(pngs == stream_pngs and len(pngs) == STREAM_FRAMES, "the HTTP stream's frames differ")
+    check(counts["demo_stream_http"]["skinning"] == 2 * STREAM_FRAMES, "stream http launches")
+    check(out.count(DISPLAY_NOTICE) == 1, "--display did not print its notice once")
+
+    args = cli_demo.parse_args(base + ["--detector", "maskrcnn"])
+    _, out = printed(cli_demo.build_tester, args)
+    print(f"--detector maskrcnn: ran as --detector {args.detector}")
+    check(MASKRCNN_NOTICE in out and args.detector == "refine", "maskrcnn did not fall back")
+    args = cli_demo.parse_args(base + ["--mode", "webcam", "--webcam_source", "0"])
+    try:
+        cli_demo.run_webcam(args, stream_tester)
+        raised = "nothing"
+    except RuntimeError as err:
+        raised = str(err)
+    print(f"--webcam_source 0: {raised}")
+    check("needs cv2.VideoCapture" in raised, "a camera index did not raise naming cv2")
+    return counts
+
+
+DRAW_FRAMES = 4           # frames of phase 4o's video runs (the first of DEMO_VIDEO_DIR; 8
+#                           before 4j (e))
 POSE_PEOPLE = 2           # seeded keypoint tracks of 4o's pose-tracking run
 CAPTION = "Other View"
 CAPTION_REFERENCE = REPO / "tests" / "data" / "torch_caption_cv2.npz"   # cv2's, 540 and 1080
@@ -4311,7 +4500,6 @@ def drawn_runs(tmp: Path, tester, base: list[str], written: dict, card: str
         shutil.copy(p, folder)
     args = cli_demo.parse_args(base + ["--image_folder", str(folder), "--output_folder",
                                        str(tmp / "draw_out"), "--draw_keypoints", "--wireframe"])
-    cli_demo.refuse_unported(args)
     tester.stage_seconds.clear()
     reset_counts()
     results = cli_demo.run_folder(args, tester)
@@ -4342,7 +4530,6 @@ def drawn_runs(tmp: Path, tester, base: list[str], written: dict, card: str
     args = cli_demo.parse_args(base + ["--mode", "video", "--image_folder", str(video),
                                        "--output_folder", str(tmp / "side_out"), "--sideview",
                                        "--wireframe"])
-    cli_demo.refuse_unported(args)
     tester.stage_seconds.clear()
     reset_counts()
     side = cli_demo.run_video(args, tester)
@@ -4357,7 +4544,9 @@ def drawn_runs(tmp: Path, tester, base: list[str], written: dict, card: str
     box_equal = [x0, y0 - th - off, x0 + tw + off, y0 + off] == ref_box.tolist()
     diff = np.abs(box.astype(int) - ref).max(-1) if box.shape == ref.shape else None
     lengths = [len(r["frame_ids"]) for r in side.values()]
-    expected = math.ceil(DRAW_FRAMES / 8) + sum(math.ceil(n / args.batch_size) for n in lengths)
+    warm = len(tester.warmup_sizes((h, w)))   # `cli.demo.run_video` warms the tester up first
+    expected = warm + math.ceil(DRAW_FRAMES / 8) + sum(
+        math.ceil(n / args.batch_size) for n in lengths)
     print(f"4o (ii) video --sideview --wireframe over {DRAW_FRAMES} frames: {len(rendered)} "
           f"frames of {out.shape[1]}x{out.shape[0]}; the caption's box {box.shape[1]}x"
           f"{box.shape[0]} {'equals' if box_equal else 'differs from'} cv2's, "
@@ -4386,17 +4575,16 @@ def drawn_runs(tmp: Path, tester, base: list[str], written: dict, card: str
     args = cli_demo.parse_args(base + ["--mode", "video", "--image_folder", str(video),
                                        "--output_folder", str(tmp / "pose_out"),
                                        "--tracking_method", "pose"])
-    cli_demo.refuse_unported(args)
     tester.stage_seconds.clear()
     reset_counts()
     tracks = cli_demo.run_video(args, tester)
     counts["demo_pose"] = read_counts("demo pose")
     lengths = {pid: len(r["frame_ids"]) for pid, r in tracks.items()}
     rendered = sorted((tmp / "pose_out" / "rendered").glob("*.png"))
-    expected = sum(math.ceil(n / args.batch_size) for n in lengths.values())
+    expected = warm + sum(math.ceil(n / args.batch_size) for n in lengths.values())
     print(f"4o (iii) --tracking_method pose over {DRAW_FRAMES} frames: tracks {lengths}; "
-          f"launches {dict(counts['demo_pose'])} (expected skinning {expected}: no detector, "
-          f"one chunk a track); {len(rendered)} frames rendered; "
+          f"launches {dict(counts['demo_pose'])} (expected skinning {expected}: {warm} warm-up "
+          f"forwards, no detector, one chunk a track); {len(rendered)} frames rendered; "
           f"{stage_split(tester, DRAW_FRAMES, 'frame')} on {card}")
     check(sorted(lengths) == list(range(POSE_PEOPLE))
           and all(n == DRAW_FRAMES for n in lengths.values()), "pose tracks")
@@ -4732,7 +4920,8 @@ def main() -> int:
          "launches": launches["skinning_simt"], "max_abs_err": errs["v1"],
          "ms": times["earlier_ms"],
          "cold_ms": times["earlier_cold_ms"], "plain_ms": times["plain_ms"],
-         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]},
+         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+         "library_ms": times["library_ms"]},
         # the JAX package differentiates its einsum path with XLA: no Pallas kernel
         {"name": "skinning_backward", "source": "poco_tpu_torch/csrc/skinning_backward.cu",
          **common, "replaces": "poco_tpu/smpl/lbs.py:177",

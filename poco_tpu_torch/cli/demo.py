@@ -4,40 +4,54 @@ mesh overlays (the port's counterpart of the repo's `demo.py`).
     python -m poco_tpu_torch.cli.demo --mode folder --image_folder DIR \\
         [--output_folder out/demo] [--ckpt X.pt] [--detector refine|yolo|...] \\
         [--sideview] [--save_obj] [--draw_keypoints] [--device cuda|cpu]
-    python -m poco_tpu_torch.cli.demo --mode video (--vid_file in.mp4 | \\
-        --image_folder FRAMES_DIR) [--smooth] [--sideview] [--wireframe] \\
+    python -m poco_tpu_torch.cli.demo --mode video (--vid_file in.mp4|in.avi|URL | \\
+        --image_folder FRAMES_DIR) [--smooth] [--sideview] [--wireframe] [--display] \\
         [--tracking_method pose [--staf_dir STAF]] [--device cuda|cpu]
     python -m poco_tpu_torch.cli.demo --mode directory --image_folder PARENT \\
         [--dir_chunk i --dir_chunk_size n]
-    python -m poco_tpu_torch.cli.demo --mode webcam --webcam_source FRAMES_DIR \\
-        [--max_frames N] [--stream_sequential] [--smooth]
+    python -m poco_tpu_torch.cli.demo --mode webcam --webcam_source \\
+        (FRAMES_DIR | N | URL | FILE) [--max_frames N] [--stream_sequential] [--smooth]
 
 The flags are `demo.py`'s, under the same names and defaults, plus
 `--device` (cuda unless `--device cpu`). A folder image is written under
 its own name and format (`x.jpg` as a JPEG, quality 95, as cv2.imwrite
 writes it: libjpeg on a host that has it, nvJPEG on the card's host), the
-video mode's frames as `rendered/%06d.png`, assembled into an mp4 when
-ffmpeg is on PATH, the webcam mode's as `stream_%06d.png`. `--vid_file`
-needs ffmpeg; `--image_folder` takes a directory of same-size frames
-instead. `--mode webcam` replays a directory of frames through the
-depth-1 dispatch-ahead stream (`demo/stream.py`; `--stream_sequential`
-turns the pipeline off) and prints its latencies and frames/s.
+video mode's frames as `rendered/%06d.png`, the webcam mode's as
+`stream_%06d.png`.
+
+Video and stream sources take the JAX package's routes where ffmpeg or
+cv2 is installed, and a Motion-JPEG route of the port's own where
+neither is (`utils/mjpeg.py`): `--vid_file` is extracted
+by ffmpeg, else cv2, else, for an MJPG `.avi`, by copying its stored
+JPEGs out; the rendered frames become `<stem>_poco.mp4` (ffmpeg, else
+cv2's mp4v) or, with neither, `<stem>_poco.avi` in Motion-JPEG. Before
+extraction the video's frame size is probed (cv2, else the AVI header)
+and the tester warmed up at it (`PocoTester.warmup`); `--image_folder`
+takes a directory of same-size frames instead. A YouTube URL is
+downloaded with pytube or yt-dlp where installed (else the run stops,
+naming them). `--mode webcam` streams a directory of frames, a camera
+index, a URL or a video file through cv2.VideoCapture where cv2 is
+installed; without cv2, a directory, an MJPG `.avi` or an HTTP
+Motion-JPEG stream (`multipart/x-mixed-replace`), through the depth-1
+dispatch-ahead stream (`demo/stream.py`; `--stream_sequential` turns the
+pipeline off), and prints its latencies and frames/s. `--display` shows
+the frames in a cv2 window where there is one, else prints a notice once.
 
 `--detector yolo` reads Darknet `yolov3.weights` from `--yolo_weights`,
 $POCO_TPU_YOLO_WEIGHTS or data/detector/yolov3.weights (not in the repo;
 nothing fetches it) and, without one, turns into `refine` with a notice.
-`hog` and `refine` start from full-frame proposals (no HOG without
-OpenCV). As in `demo.py`, `--draw_keypoints` marks the folder mode's
-projected joints, `--wireframe` draws the video mode's meshes as face
-outlines, video-mode `--sideview` adds the captioned side view, and
+`--detector maskrcnn` is torchvision's Mask R-CNN with the weights file
+$POCO_TPU_MASKRCNN_WEIGHTS; without both it falls back to `yolo` with the
+JAX demo's notice. `hog` and `refine` start from full-frame proposals (no
+HOG without OpenCV). As in `demo.py`, `--draw_keypoints` marks the folder
+mode's projected joints, `--wireframe` draws the video mode's meshes as
+face outlines, video-mode `--sideview` adds the captioned side view, and
 `--tracking_method pose` reads keypoint tracks from posetrack JSON in
 `<output_folder>/posetrack` (written there first by the STAF OpenPose
 binary when `--staf_dir` is given; `utils/pose_tracker.py`). The drawing
 is drawn without OpenCV: the wireframe and keypoints as cv2 draws them
 (`runtime/native/poco_raster.cpp`), the caption as a model of OpenCV 5's
-text (`viz/text.py`). Refused, each naming its ROADMAP.md item: a camera or
-stream URL as `--webcam_source` (cv2.VideoCapture), `--display` (a cv2
-window), `--detector maskrcnn` and YouTube URLs.
+text (`viz/text.py`).
 TF32 is switched off for cuBLAS and cuDNN.
 """
 
@@ -52,8 +66,6 @@ import time
 import torch
 from ..device import default_device
 
-ROADMAP = "ROADMAP.md queue A item 4"
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -67,8 +79,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--mode", default="folder",
                         choices=["video", "folder", "directory", "webcam"])
     parser.add_argument("--vid_file", default=None,
-                        help="video to extract with ffmpeg (video mode); without it "
-                             "--image_folder is the frame directory")
+                        help="video (or YouTube URL) to extract with ffmpeg, cv2 or, for an "
+                             "MJPG .avi, neither (video mode); without it --image_folder "
+                             "is the frame directory")
     parser.add_argument("--image_folder", default="demo_data/images")
     parser.add_argument("--output_folder", default="out/demo",
                         help="overlays go here, under each input's own name and format")
@@ -79,7 +92,8 @@ def parse_args(argv=None) -> argparse.Namespace:
              "(default): full-frame proposals refined by the model's own "
              "keypoints; uncert: tiled windows scored by the predicted "
              "uncertainty; hog: the full-frame proposal (no HOG without "
-             "OpenCV); full_frame: one whole-frame box; maskrcnn: refused",
+             "OpenCV); full_frame: one whole-frame box; maskrcnn: torchvision's Mask "
+             "R-CNN with $POCO_TPU_MASKRCNN_WEIGHTS (else yolo, with a notice)",
     )
     parser.add_argument("--yolo_weights", default=None,
                         help="path to Darknet yolov3.weights (default: "
@@ -95,7 +109,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--no_kinematic_uncert", action="store_false",
                         help="disable kinematic-chain uncertainty accumulation "
                              "(on unless this flag is given, as in the reference)")
-    parser.add_argument("--display", action="store_true", help="refused (a cv2 window)")
+    parser.add_argument("--display", action="store_true",
+                        help="show rendered frames in a cv2 window (a notice without one)")
     parser.add_argument("--tracking_method", default="bbox", choices=["bbox", "pose"])
     parser.add_argument("--staf_dir", default=None,
                         help="STAF build folder: run its OpenPose binary for "
@@ -105,8 +120,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--beta", type=float, default=0.7)
     parser.add_argument("--no_render", action="store_true")
     parser.add_argument("--webcam_source", default="0",
-                        help="webcam mode: a directory of frames to replay (a camera index "
-                             "or a stream URL is refused: cv2.VideoCapture)")
+                        help="webcam mode: a directory of frames to replay; a camera index, "
+                             "a stream URL or a video file with cv2; without cv2 an MJPG "
+                             ".avi or an HTTP Motion-JPEG URL")
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--stream_sequential", action="store_true",
                         help="webcam mode without the depth-1 dispatch-ahead pipeline")
@@ -128,22 +144,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.exp:
         args.output_folder = args.output_folder.rstrip("/") + "_" + args.exp
     return args
-
-
-def refuse_unported(args) -> None:
-    """Raise for every mode and flag the port does not have."""
-    refused = []
-    if args.mode == "webcam" and not osp.isdir(args.webcam_source):
-        refused.append(f"--webcam_source {args.webcam_source!r}: a camera or stream URL "
-                       "(cv2.VideoCapture; a directory of frames replays)")
-    if args.display:
-        refused.append("--display (a cv2 window)")
-    if args.detector == "maskrcnn":
-        refused.append("--detector maskrcnn (the Mask R-CNN option)")
-    if args.vid_file and args.vid_file.startswith(("https://", "http://")):
-        refused.append("a --vid_file URL (YouTube download needs the network)")
-    if refused:
-        raise SystemExit(f"not ported: {'; '.join(refused)}; see {ROADMAP}")
 
 
 def build_tester(args):
@@ -168,7 +168,21 @@ def build_tester(args):
     else:
         print("no --ckpt: random weights (torch seed 0); overlays may fall off-screen")
 
+    maskrcnn = None
+    if args.detector == "maskrcnn":
+        from ..demo.tracker import make_maskrcnn_detector
+
+        maskrcnn = make_maskrcnn_detector(device=device)
+        if maskrcnn is None:
+            print(
+                "--detector maskrcnn: torchvision (or its pretrained "
+                "weights) is unavailable in this environment; falling "
+                "back to --detector yolo (TPU-native)."
+            )
+            args.detector = "yolo"
     detector = hog_person_detector if args.detector in ("hog", "refine") else full_frame_detector
+    if maskrcnn is not None:
+        detector = maskrcnn
     if args.detector == "yolo":
         yolo = make_yolo_detector(args.yolo_weights, img_size=args.yolo_img_size,
                                   batch_size=args.tracker_batch_size, device=device)
@@ -195,20 +209,35 @@ def _print_stages(tester) -> None:
 
 
 def run_video(args, tester) -> dict:
-    from ..utils.demo_utils import has_ffmpeg, images_to_video, video_to_images
+    from ..utils.demo_utils import (download_youtube_clip, images_to_video,
+                                    video_frame_size, video_to_images)
 
     out_dir = args.output_folder
     os.makedirs(out_dir, exist_ok=True)
-    if args.vid_file:
-        stem = osp.splitext(osp.basename(args.vid_file))[0]
+    vid_file = args.vid_file
+    if vid_file and vid_file.startswith(("https://www.youtube.com", "https://youtu.be")):
+        print(f"downloading YouTube video {vid_file}")
+        vid_file = download_youtube_clip(vid_file, osp.join(out_dir, "video_downloads"))
+        if vid_file is None:
+            raise SystemExit(
+                "YouTube download failed (install pytube or yt-dlp, "
+                "and check the url)"
+            )
+    if vid_file:
+        # per-video frame dir: a longer earlier video's frames would stay in it
+        stem = osp.splitext(osp.basename(vid_file))[0]
+        tester.warmup(video_frame_size(vid_file))
         img_folder, n_frames, _ = video_to_images(
-            args.vid_file, osp.join(out_dir, f"frames_{stem}"), return_info=True)
+            vid_file, osp.join(out_dir, f"frames_{stem}"), return_info=True)
     else:
         from ..data.inference import images_in_folder
+        from ..runtime.loader import image_size
 
         img_folder = args.image_folder
         stem = osp.basename(osp.normpath(img_folder))
-        n_frames = len(images_in_folder(img_folder))
+        frames = images_in_folder(img_folder)
+        n_frames = len(frames)
+        tester.warmup(image_size(frames[0]) if frames else None)
     t0 = time.time()
     if args.tracking_method == "pose":
         from ..utils.pose_tracker import run_posetracker
@@ -228,12 +257,10 @@ def run_video(args, tester) -> dict:
                               uncert_color=not args.no_uncert_color,
                               wireframe=args.wireframe,
                               uncert_log=osp.join(out_dir, "uncertainty.log"),
+                              display=args.display,
                               sideview=args.sideview)
         tag = f"_{args.exp}" if args.exp else ""
-        if has_ffmpeg():
-            images_to_video(render_dir, osp.join(out_dir, f"{stem}{tag}_poco.mp4"))
-        else:
-            print(f"ffmpeg not on PATH: no mp4; the frames are in {render_dir}")
+        images_to_video(render_dir, osp.join(out_dir, f"{stem}{tag}_poco.mp4"))
     _print_stages(tester)
     return results
 
@@ -250,6 +277,7 @@ def run_folder(args, tester) -> list:
         draw_keypoints=args.draw_keypoints,
         skip_frame=args.skip_frame,
         render_crop=args.render_crop,
+        display=args.display,
     )
     n = sum(len(r.get("bboxes", [])) for r in results)
     print(f"poco FPS: {n / max(time.time() - t0, 1e-9):.2f} ({n} crops)")
@@ -258,7 +286,7 @@ def run_folder(args, tester) -> list:
 
 
 def run_webcam(args, tester) -> dict:
-    """The stream over a replayed directory (`demo/stream.py`)."""
+    """The stream over `--webcam_source` (`demo/stream.py`)."""
     from ..demo.stream import open_source, run_stream
 
     source = open_source(args.webcam_source, max_frames=args.max_frames)
@@ -266,7 +294,9 @@ def run_webcam(args, tester) -> dict:
         tester, source,
         output_folder=None if args.no_render else args.output_folder,
         smooth=args.smooth, min_cutoff=args.min_cutoff, beta=args.beta,
-        uncert_color=not args.no_uncert_color, pipeline=not args.stream_sequential,
+        uncert_color=not args.no_uncert_color, display=args.display,
+        render=not args.no_render, max_frames=args.max_frames,
+        pipeline=not args.stream_sequential,
     )
     print(f"poco stream: {stats['frames']} frames, e2e p50 {stats['e2e_ms_p50']} ms "
           f"(p90 {stats['e2e_ms_p90']}), model p50 {stats['model_ms_p50']} ms "
@@ -293,7 +323,6 @@ def run_directory(args, tester) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     tester = build_tester(args)
     run = {"video": run_video, "folder": run_folder, "directory": run_directory,
            "webcam": run_webcam}[args.mode]

@@ -25,6 +25,7 @@ import contextlib
 import os
 import os.path as osp
 import pickle
+import sys
 import time
 from collections import Counter
 from typing import Any
@@ -42,10 +43,11 @@ from ..smpl.lbs import SmplParams
 from ..utils.demo_utils import (
     convert_crop_cam_to_orig_img,
     convert_crop_coords_to_orig_img,
+    optional_cv2,
     prepare_rendering_results,
 )
 from ..runtime.raster import circles_aa
-from ..viz.renderer import Renderer, get_vertex_colors, overlay_text, refuse, save_obj
+from ..viz.renderer import Renderer, get_vertex_colors, overlay_text, save_obj
 from .tracker import Detector, full_frame_detector, run_tracking
 
 
@@ -148,6 +150,7 @@ class PocoTester:
         self.lbs_weights = smpl.all_lbs_weights.cpu().numpy()
         self.renderer = Renderer(self.faces)
         self.stage_seconds: Counter = Counter()
+        self._display_warned = False
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -156,6 +159,47 @@ class PocoTester:
             yield
         finally:
             self.stage_seconds[name] += time.perf_counter() - start
+
+    def _display_frame(self, frame: np.ndarray) -> None:
+        """Show a rendered frame in a cv2 window (reference tester.py:352,
+        --display). Without cv2, a display server or a GUI backend in cv2,
+        a one-time notice, and the run goes on. (On Linux with no DISPLAY or
+        WAYLAND_DISPLAY the window is not tried: a Qt build of cv2 aborts
+        the process there instead of raising.)"""
+        cv2 = optional_cv2()
+        headless = sys.platform.startswith("linux") and not (
+            os.environ.get("DISPLAY") or os.environ.get("WAYLAND_DISPLAY"))
+        if cv2 is not None and not headless:
+            try:
+                cv2.imshow("poco", frame[:, :, ::-1])
+                cv2.waitKey(1)
+                return
+            except cv2.error:
+                pass
+        if not self._display_warned:
+            print("--display requested but no GUI backend; skipping")
+            self._display_warned = True
+
+    @staticmethod
+    def warmup_sizes(frame_hw: tuple[int, int] | None) -> set[tuple[int, int]]:
+        """The frame sizes `warmup` runs: the frame's own and the tracking
+        pass's (its long side downscaled to 512 px)."""
+        h0, w0 = frame_hw or (256, 256)
+        ds = min(1.0, 512.0 / max(h0, w0))
+        return {(h0, w0), (int(round(h0 * ds)), int(round(w0 * ds)))}
+
+    def warmup(self, frame_hw: tuple[int, int] | None = None) -> None:
+        """One forward of a whole-frame box on a black frame at each of
+        `warmup_sizes(frame_hw)`, on the tester's device and waited for, so
+        that the kernels' build and cuDNN's first calls come before the
+        video's frames are extracted (the JAX demo's `warmup` queues its
+        programs' compiles there)."""
+        for h, w in sorted(self.warmup_sizes(frame_hw)):
+            frame = torch.zeros((h, w, 3), dtype=torch.uint8, device=self.device)
+            _, centers, scales = _boxes(full_frame_detector(frame))
+            detect_forward(self.model, self.smpl, frame, centers, scales)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def _run_batches(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
@@ -383,11 +427,9 @@ class PocoTester:
         own name and format (twice the width with `sideview`). skip_frame=N
         takes every Nth image; render_crop draws on the first detection's 224-px
         crop with the crop camera (tester.py:256-280); `draw_keypoints`
-        marks the projected joints (`draw_keypoints_2d`). `display` (a cv2
-        window) is refused.
+        marks the projected joints (`draw_keypoints_2d`); `display` shows
+        each written frame (`_display_frame`).
         """
-        if display:
-            refuse("--display (a cv2 window)")
         image_files = images_in_folder(image_folder)[:: max(skip_frame, 1)]
         if detections is None:
             detections = self.run_detector(image_files)
@@ -409,6 +451,8 @@ class PocoTester:
                                                   draw_keypoints)
             with self._stage("write"):
                 write_image(osp.join(output_folder, osp.basename(img_path)), frame)
+            if display:
+                self._display_frame(frame)
         return results
 
     def _render_folder_frame(self, img, img_path, result, output_folder, sideview,
@@ -544,10 +588,8 @@ class PocoTester:
         (`frame person value` lines). `wireframe` draws the meshes as face
         outlines; `sideview` renders the meshes turned 270 degrees on a
         black canvas with the "Other View" caption (`overlay_text`) beside
-        each frame (tester.py:511,557-570). `display` (a cv2 window) is
-        refused."""
-        if display:
-            refuse("--display (a cv2 window)")
+        each frame (tester.py:511,557-570). `display` shows each frame
+        (`_display_frame`)."""
         image_files = images_in_folder(image_folder)
         os.makedirs(output_folder, exist_ok=True)
         frame_results = prepare_rendering_results(results, len(image_files))
@@ -575,6 +617,8 @@ class PocoTester:
                                            axis=1)
             with self._stage("write"):
                 write_png(osp.join(output_folder, f"{frame_id:06d}.png"), frame)
+            if display:
+                self._display_frame(frame)
         if uncert_log:
             with open(uncert_log, "w") as f:
                 f.write("\n".join(log_lines))

@@ -7,14 +7,18 @@ kept: `dict[person_id] -> {'bbox': (T, 4) cxcywh, 'frames': [frame_ids]}`
 from a pluggable detector and a greedy-IoU tracker. No OpenCV: HOG
 proposals are the full frame (as on any cv2 build without HOG), the
 refine detector's downscale is `resize_area` (cv2's INTER_AREA weights,
-written out), and the Mask R-CNN option is refused.
+written out), and the Mask R-CNN option is torchvision's model where
+torchvision and a local weights file are there (`make_maskrcnn_detector`).
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Callable
 
 import numpy as np
+import torch
 
 Detector = Callable[[np.ndarray], np.ndarray]
 """(H, W, 3) RGB image -> (N, 4) cxcywh person boxes."""
@@ -83,13 +87,45 @@ def hog_person_detector(img: np.ndarray) -> np.ndarray:
     return full_frame_detector(img)
 
 
-def make_maskrcnn_detector(*args, **kwargs):
-    """Refused: the JAX package's torchvision Mask R-CNN option."""
-    raise NotImplementedError(
-        "--detector maskrcnn is not ported (torchvision's Mask R-CNN with "
-        "weights the card cannot fetch); see ROADMAP.md queue A item 4 "
-        "(the Mask R-CNN option)"
-    )
+def make_maskrcnn_detector(score_thresh: float = 0.7, weights_path: str | None = None,
+                           device: str | torch.device = "cpu") -> Detector | None:
+    """torchvision's Mask R-CNN person detector (the reference's --detector
+    maskrcnn, demo.py:258), as the JAX package's: the model on `device`
+    when torchvision is installed and its weights are a local file
+    (`weights_path`, else $POCO_TPU_MASKRCNN_WEIGHTS); None otherwise, and
+    the CLI falls back with a notice. Nothing is downloaded: the JAX
+    package's `weights="DEFAULT"` fetches them, the port does not."""
+    try:
+        import torchvision
+    except ImportError:
+        return None
+    weights_path = weights_path or os.environ.get("POCO_TPU_MASKRCNN_WEIGHTS", "")
+    if not weights_path or not os.path.isfile(weights_path):
+        return None
+    try:
+        model = torchvision.models.detection.maskrcnn_resnet50_fpn(
+            weights=None, weights_backbone=None)
+        model.load_state_dict(torch.load(weights_path, map_location="cpu"))
+    except (OSError, RuntimeError, pickle.UnpicklingError):
+        return None   # not a Mask R-CNN state dict
+    model = model.to(device).eval()
+
+    def detect(img: np.ndarray) -> np.ndarray:
+        ten = torch.from_numpy(
+            np.ascontiguousarray(img, np.float32).transpose(2, 0, 1) / 255.0).to(device)
+        with torch.no_grad():
+            out = model([ten])[0]
+        keep = (out["labels"] == 1) & (out["scores"] >= score_thresh)
+        xyxy = out["boxes"][keep].cpu().numpy()
+        if xyxy.size == 0:
+            return np.zeros((0, 4), np.float32)
+        cx = (xyxy[:, 0] + xyxy[:, 2]) / 2.0
+        cy = (xyxy[:, 1] + xyxy[:, 3]) / 2.0
+        w = xyxy[:, 2] - xyxy[:, 0]
+        h = xyxy[:, 3] - xyxy[:, 1]
+        return np.stack([cx, cy, w, h], axis=1).astype(np.float32)
+
+    return detect
 
 
 def tiled_window_proposals(

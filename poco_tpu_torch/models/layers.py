@@ -168,7 +168,16 @@ def grid_sample_bilinear(features: torch.Tensor, uv: torch.Tensor) -> torch.Tens
         uv: (B, N, 2).
     Returns:
         (B, C, N).
+
+    Finite coordinates are first clamped to a range that lies wholly
+    outside the map (past 1 + 2/(size-1), where no tap reaches it): on the
+    card `F.grid_sample` turns a point ~1e30 out into NaN instead of
+    zero. `clamp` passes NaN on, and infinities are left as they are, so
+    the NaN outputs stay JAX's.
     """
+    h, w = features.shape[-2:]
+    bound = uv.new_tensor([1 + 4 / max(w - 1, 1), 1 + 4 / max(h - 1, 1)])
+    uv = torch.where(torch.isfinite(uv), uv.clamp(-bound, bound), uv)
     return F.grid_sample(
         features, uv.unsqueeze(2), mode="bilinear", padding_mode="zeros",
         align_corners=True,

@@ -46,6 +46,41 @@ def encode_png(image: np.ndarray, level: int = 1) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """The inverse of `encode_png`: its 8-bit RGB or grey, not interlaced
+    PNGs, filter 0 on every scanline, to (H, W, 3) or (H, W) uint8. For
+    reading the port's own frames back where the loader decodes JPEG only
+    (its nvJPEG route); any other PNG raises ValueError."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG (no PNG signature)")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("a PNG without IHDR or IDAT")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in (0, 2) or interlace:
+        raise ValueError(f"decode_png reads 8-bit RGB or grey PNGs, not interlaced; this one "
+                         f"has bit depth {depth}, colour type {color_type}, interlace {interlace}")
+    channels = 3 if color_type == 2 else 1
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if rows.size != h * (1 + w * channels):
+        raise ValueError("a PNG whose image data does not fill its size")
+    rows = rows.reshape(h, 1 + w * channels)
+    if rows[:, 0].any():
+        raise ValueError("decode_png reads unfiltered scanlines (encode_png's) only")
+    image = rows[:, 1:].reshape(h, w, channels)
+    return image if channels == 3 else image[..., 0]
+
+
 def write_png(path: str, image: np.ndarray) -> None:
     """Write `image` (RGB or grey uint8) to `path` as PNG."""
     with open(path, "wb") as f:

@@ -1,12 +1,15 @@
 """Demo pipeline utilities (port of `poco_tpu.utils.demo_utils`; reference
-pocolib/utils/demo_utils.py:183-315): video I/O through ffmpeg, camera
+pocolib/utils/demo_utils.py:183-315): video I/O, YouTube download, camera
 and keypoint conversions, depth-sorted render preparation.
 
-Video I/O needs `ffmpeg` on PATH and raises without it: the JAX package's
-`cv2.VideoCapture` / `VideoWriter` branch has no counterpart here (the
-port runs without OpenCV). Frames are extracted as JPEG (`-qscale:v 2`),
-the format every route of the port's loader decodes. YouTube download is
-not ported: it needs the network (ROADMAP.md queue A item 4).
+Video I/O takes the JAX package's routes where they exist on the host,
+ffmpeg first, then cv2, and after them a route of the port's own that
+needs neither: Motion-JPEG (`utils/mjpeg.py`). `video_to_images` copies
+an MJPG AVI's stored JPEGs out unchanged; `images_to_video` encodes the
+frames with the port's JPEG encoder into `<stem>.avi` (Motion-JPEG) in
+place of the mp4 that ffmpeg or cv2 write. Frames are extracted as JPEG,
+the format every route of the port's loader decodes. cv2, pytube and
+yt-dlp are imported or run only inside the calls that use them.
 """
 
 from __future__ import annotations
@@ -26,36 +29,115 @@ def has_ffmpeg() -> bool:
     return shutil.which("ffmpeg") is not None
 
 
-def _require_ffmpeg(what: str) -> None:
-    if not has_ffmpeg():
-        raise RuntimeError(
-            f"{what} needs ffmpeg on PATH (the port has no OpenCV video "
-            "fallback); give --image_folder a directory of frames instead"
-        )
+def optional_cv2():
+    """cv2, or None where it does not import (not installed, or installed
+    without the libraries it loads)."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def download_youtube_clip(url: str, download_folder: str) -> str | None:
+    """Download a YouTube video for the video demo (reference
+    demo_utils.py:86-88): pytube where it is installed, then the yt-dlp
+    binary; the downloaded file's path, or None when neither is there or
+    the download fails."""
+    os.makedirs(download_folder, exist_ok=True)
+    try:
+        from pytube import YouTube  # optional
+
+        stream = YouTube(url).streams.get_highest_resolution()
+        return stream.download(output_path=download_folder)
+    except ImportError:
+        pass
+    except Exception:
+        return None
+    if shutil.which("yt-dlp"):
+        out_tpl = osp.join(download_folder, "%(id)s.%(ext)s")
+        try:
+            r = subprocess.run(
+                ["yt-dlp", "-f", "best[ext=mp4]/best", "-o", out_tpl,
+                 "--print", "after_move:filepath", url],
+                capture_output=True, text=True, check=True,
+            )
+            path = r.stdout.strip().splitlines()[-1]
+            return path if osp.exists(path) else None
+        except (subprocess.CalledProcessError, IndexError):
+            return None
+    return None
+
+
+def video_frame_size(vid_file: str) -> tuple[int, int]:
+    """(height, width) of a video's frames without extracting them: cv2's
+    probe where cv2 is installed (256 for a side it cannot read, as the
+    JAX demo has it), else the MJPG AVI header."""
+    cv2 = optional_cv2()
+    if cv2 is not None:
+        cap = cv2.VideoCapture(vid_file)
+        fh = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)) or 256
+        fw = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)) or 256
+        cap.release()
+        return fh, fw
+    from .mjpeg import avi_frame_size
+
+    return avi_frame_size(vid_file)
 
 
 def video_to_images(
     vid_file: str, img_folder: str | None = None, return_info: bool = False
 ):
-    """Extract a video's frames as `%06d.jpg` (reference
+    """Extract a video's frames as `%06d.jpg`, numbered from 1 (reference
     demo_utils.py:183-208), stale frames of an earlier extraction removed
-    first. With `return_info`, returns (folder, frame count, (h, w, 3))."""
-    _require_ffmpeg("video_to_images")
+    first. The routes, in order: ffmpeg (`-qscale:v 2`); cv2.VideoCapture
+    with `imwrite` at JPEG quality 95 (the JAX package's fallback); an MJPG
+    AVI's stored JPEGs written unchanged (`mjpeg.read_avi_mjpeg`: no decode,
+    no re-encode). Raises when none applies. With `return_info`, returns
+    (folder, frame count, (h, w, 3))."""
     if img_folder is None:
         raise ValueError("video_to_images needs an output folder")
     os.makedirs(img_folder, exist_ok=True)
     for f in os.listdir(img_folder):
         if f.lower().endswith((".png", ".jpg", ".jpeg")):
             os.remove(osp.join(img_folder, f))
-    subprocess.run(
-        ["ffmpeg", "-i", vid_file, "-f", "image2", "-v", "error",
-         "-qscale:v", "2", f"{img_folder}/%06d.jpg"],
-        check=True,
-    )
+    cv2 = optional_cv2()
+    if has_ffmpeg():
+        subprocess.run(
+            ["ffmpeg", "-i", vid_file, "-f", "image2", "-v", "error",
+             "-qscale:v", "2", f"{img_folder}/%06d.jpg"],
+            check=True,
+        )
+    elif cv2 is not None:
+        cap = cv2.VideoCapture(vid_file)
+        idx = 1
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            cv2.imwrite(osp.join(img_folder, f"{idx:06d}.jpg"), frame,
+                        [cv2.IMWRITE_JPEG_QUALITY, 95])
+            idx += 1
+        cap.release()
+    else:
+        from .mjpeg import read_avi_mjpeg
+
+        try:
+            frames = read_avi_mjpeg(vid_file)
+            for idx, data in enumerate(frames, start=1):
+                with open(osp.join(img_folder, f"{idx:06d}.jpg"), "wb") as f:
+                    f.write(data)
+        except ValueError as err:
+            raise RuntimeError(
+                f"video_to_images: {vid_file} needs ffmpeg on PATH or cv2, neither of which "
+                f"is here, unless it is a Motion-JPEG AVI ({err}); give --image_folder a "
+                "directory of frames instead") from err
+    frames = sorted(f for f in os.listdir(img_folder) if f.endswith(".jpg"))
+    if not frames:
+        raise RuntimeError(f"video_to_images: no frame could be read from {vid_file}")
     if return_info:
         from ..runtime.loader import image_size
 
-        frames = sorted(os.listdir(img_folder))
         h, w = image_size(osp.join(img_folder, frames[0]))
         return img_folder, len(frames), (h, w, 3)
     return img_folder
@@ -64,17 +146,60 @@ def video_to_images(
 def images_to_video(
     img_folder: str, output_vid_file: str, fps: int = 30,
     pattern: str = "%06d.png",
-) -> None:
-    """Assemble frames into an H.264 mp4 (reference demo_utils.py:237-246)."""
-    _require_ffmpeg("images_to_video")
+) -> str:
+    """Assemble frames into a video and return its path. ffmpeg writes an
+    H.264 mp4 (reference demo_utils.py:237-246), else cv2.VideoWriter an
+    mp4v one (the JAX package's fallback); with neither, the frames are
+    encoded by the port's JPEG encoder at quality 95 (`loader.encode_jpeg`:
+    libjpeg, or nvJPEG on the card's host) into a Motion-JPEG AVI,
+    `output_vid_file` with the suffix `.avi` (where the loader reads no
+    PNG, the frames must be the port's own PNGs: `image_write.decode_png`)."""
     os.makedirs(osp.dirname(output_vid_file) or ".", exist_ok=True)
-    subprocess.run(
-        ["ffmpeg", "-y", "-framerate", str(fps), "-threads", "16", "-i",
-         f"{img_folder}/{pattern}", "-profile:v", "baseline", "-level",
-         "3.0", "-c:v", "libx264", "-pix_fmt", "yuv420p", "-an", "-v",
-         "error", output_vid_file],
-        check=True,
-    )
+    if has_ffmpeg():
+        subprocess.run(
+            ["ffmpeg", "-y", "-framerate", str(fps), "-threads", "16", "-i",
+             f"{img_folder}/{pattern}", "-profile:v", "baseline", "-level",
+             "3.0", "-c:v", "libx264", "-pix_fmt", "yuv420p", "-an", "-v",
+             "error", output_vid_file],
+            check=True,
+        )
+        return output_vid_file
+    frames = sorted(f for f in os.listdir(img_folder) if f.endswith((".png", ".jpg")))
+    if not frames:
+        raise FileNotFoundError(f"no frames in {img_folder}")
+    cv2 = optional_cv2()
+    if cv2 is not None:
+        first = cv2.imread(osp.join(img_folder, frames[0]))
+        h, w = first.shape[:2]
+        writer = cv2.VideoWriter(
+            output_vid_file, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h)
+        )
+        for f in frames:
+            writer.write(cv2.imread(osp.join(img_folder, f)))
+        writer.release()
+        return output_vid_file
+    from ..runtime.image_write import decode_png
+    from ..runtime.loader import encode_jpeg, read_image_rgb
+    from .mjpeg import write_avi_mjpeg
+
+    def read(name: str) -> np.ndarray:
+        path = osp.join(img_folder, name)
+        try:
+            return read_image_rgb(path)
+        except ValueError:
+            if not name.endswith(".png"):
+                raise
+            # the loader's nvJPEG route decodes JPEG only: the demo's own
+            # PNGs are read back by their encoder's inverse
+            with open(path, "rb") as f:
+                return decode_png(f.read())
+
+    avi = osp.splitext(output_vid_file)[0] + ".avi"
+    first = read(frames[0])
+    write_avi_mjpeg(avi, (encode_jpeg(first if i == 0 else read(f), quality=95)
+                          for i, f in enumerate(frames)), fps, first.shape[1::-1])
+    print(f"no ffmpeg or cv2: wrote the frames as Motion-JPEG to {avi}")
+    return avi
 
 
 def convert_crop_cam_to_orig_img(

@@ -22,16 +22,6 @@ from ..runtime.raster import raster_mesh
 from ..runtime.raster import wireframe as wireframe_faces
 from .text import get_text_size, put_text
 
-ROADMAP_ITEM = "ROADMAP.md queue A item 4 (the demo's cv2 drawing calls)"
-
-
-def refuse(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported: it is drawn with OpenCV, which the port does "
-        f"not use; see {ROADMAP_ITEM}"
-    )
-
-
 # Mesh color registry (reference MESH_COLOR config + the demo color
 # table used by the vibe renderer).
 MESH_COLORS = {

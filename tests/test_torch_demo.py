@@ -37,6 +37,7 @@ tolerances are stated beside each check:
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -197,9 +198,16 @@ def test_resize_area_is_cv2_inter_area(src, dst):
         tracker.resize_area(xu, *dst), cv2.resize(xu, (dst[1], dst[0]), interpolation=cv2.INTER_AREA))
 
 
-def test_maskrcnn_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        tracker.make_maskrcnn_detector()
+def test_maskrcnn_is_refused(monkeypatch, tmp_path):
+    """`make_maskrcnn_detector` is None, as the JAX package's is, where
+    torchvision or its weights cannot be had: here torchvision is not
+    installed (and is hidden where it is), and a weights file that is not
+    there gives None too, with nothing downloaded."""
+    monkeypatch.setitem(sys.modules, "torchvision", None)
+    assert tracker.make_maskrcnn_detector() is None
+    assert jax_tracker.make_maskrcnn_detector() is None
+    monkeypatch.setenv("POCO_TPU_MASKRCNN_WEIGHTS", str(tmp_path / "absent.pth"))
+    assert tracker.make_maskrcnn_detector() is None
 
 
 # --------------------------------------------------------------------------
@@ -373,16 +381,16 @@ def test_render_matches_jax(sideview):
 
 
 def test_renderer_refuses_cv2_drawing():
-    """The renderer draws the wireframe and the caption now (held to cv2
-    and the JAX package in tests/test_torch_drawing.py); what the demo
-    still refuses (a cv2 window) raises through `renderer.refuse`, naming
-    its ROADMAP.md item."""
+    """The renderer draws the wireframe and the caption (held to cv2 and
+    the JAX package in tests/test_torch_drawing.py), and refuses nothing
+    any more: the cv2 window is the tester's `_display_frame`, as in the
+    JAX package (`test_tester_refuses_cv2_drawing`), and `renderer.refuse`
+    is gone."""
     verts, faces = _mesh()
     frame = renderer.Renderer(faces).render(None, verts, np.ones(4), wireframe=True)
     assert frame.shape == (224, 224, 3) and frame.any()
     assert renderer.overlay_text(np.zeros((64, 64, 3), np.uint8), "Other View").any()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        renderer.refuse("--display (a cv2 window)")
+    assert not hasattr(renderer, "refuse") and not hasattr(jax_renderer, "refuse")
 
 
 def test_colormap_and_part_ids_match_jax():
@@ -616,15 +624,47 @@ def test_model_in_the_loop_detectors_match_jax(testers, frame_folder, kind):
             np.testing.assert_allclose(g, w, rtol=HEAD_TOL, atol=0.05)
 
 
-def test_tester_refuses_cv2_drawing(testers, frame_folder, tmp_path):
-    """The one cv2 drawing call the tester still refuses is the window
-    (`display`), in both modes; the keypoints, the wireframe and the
-    captioned side view draw (tests/test_torch_drawing.py)."""
-    port, _ = testers
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        port.run_on_image_folder(frame_folder, str(tmp_path), display=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        port.render_results({}, frame_folder, str(tmp_path), display=True)
+DISPLAY_NOTICE = "--display requested but no GUI backend; skipping"   # the JAX tester's
+
+
+def _written(folder) -> dict[str, bytes]:
+    return {p.name: p.read_bytes() for p in sorted(Path(folder).iterdir()) if p.is_file()}
+
+
+def test_tester_refuses_cv2_drawing(testers, frame_folder, tmp_path, monkeypatch, capsys):
+    """`display` in both modes, as the JAX tester's: each written frame
+    goes to `_display_frame`, which, with no GUI backend (no display
+    server here; or cv2 not importable), prints JAX's notice once
+    and lets the run go on; the written frames are those of a run without
+    `display`. The JAX tester, whose `cv2.imshow` raises cv2.error without
+    a GUI backend (patched so here: this host's Qt build of cv2 aborts the
+    process instead), prints the same notice."""
+    port, ref = testers
+    monkeypatch.setattr(port, "_display_warned", False, raising=False)
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    shown = []
+    show = port._display_frame
+    monkeypatch.setattr(port, "_display_frame", lambda frame: (shown.append(frame), show(frame)))
+    outs = {}
+    for display in (False, True):
+        folder = tmp_path / f"folder_{display}"
+        port.run_on_image_folder(frame_folder, str(folder), display=display)
+        port.render_results({}, frame_folder, str(tmp_path / f"video_{display}"),
+                            display=display)
+        outs[display] = (_written(folder), _written(tmp_path / f"video_{display}"))
+    assert outs[True] == outs[False] and len(outs[True][0]) == len(outs[True][1]) == 4
+    assert len(shown) == 8
+    assert capsys.readouterr().out.count(DISPLAY_NOTICE) == 1
+
+    def no_gui(*args):
+        raise cv2.error("The function is not implemented")
+
+    monkeypatch.setattr(cv2, "imshow", no_gui)
+    ref._display_warned = False
+    for _ in range(2):
+        ref._display_frame(np.zeros((4, 4, 3), np.uint8))
+    assert capsys.readouterr().out.count(DISPLAY_NOTICE) == 1
 
 
 # --------------------------------------------------------------------------
@@ -651,20 +691,63 @@ def test_cli_folder_and_video_on_the_cpu(frame_folder, tmp_path, capsys):
     assert "poco FPS" in out and "stage seconds" in out
 
 
+CAMERA_ERROR = "cannot open video capture"   # the JAX package's VideoCaptureFrameSource
+MASKRCNN_NOTICE = ("--detector maskrcnn: torchvision (or its pretrained weights) is unavailable "
+                   "in this environment; falling back to --detector yolo (TPU-native).")
+YOUTUBE_EXIT = "YouTube download failed (install pytube or yt-dlp, and check the url)"
+
+
 @pytest.mark.parametrize("flags", [
     ["--mode", "webcam"], ["--display"], ["--mode", "webcam", "--webcam_source", "1"],
     ["--mode", "video", "--display"],
-    ["--mode", "webcam", "--webcam_source", "rtsp://host/stream"],
+    ["--mode", "webcam", "--webcam_source", "rtsp://127.0.0.1:1/stream"],
     ["--mode", "directory", "--display"],
     ["--detector", "maskrcnn"], ["--mode", "video", "--vid_file", "https://youtu.be/x"],
 ])
-def test_cli_refuses_unported_flags(flags):
-    """Every mode and flag still unported raises, naming its ROADMAP.md
-    item: a camera or stream as the webcam source, the cv2 window in each
-    mode, Mask R-CNN and YouTube URLs (`--wireframe`, `--draw_keypoints`,
-    video-mode `--sideview` and `--tracking_method pose` run now)."""
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 4"):
-        cli_demo.main(["--cfg", TINY_YAML, *flags, "--device", "cpu"])
+def test_cli_refuses_unported_flags(flags, frame_folder, tmp_path, monkeypatch, capsys):
+    """The modes and flags the port once refused behave as `demo.py`'s:
+    a camera index (the default source `0`, and `1`) or a stream that
+    does not open raises the JAX package's RuntimeError (cv2.VideoCapture
+    here; the stream is on loopback, where nothing listens); `--display`
+    in each mode completes with JAX's notice (no display server here);
+    Mask R-CNN falls back to yolo with JAX's notice (no torchvision), and
+    yolo to refine (no weights); a YouTube URL without pytube or yt-dlp
+    stops with JAX's SystemExit before anything touches the network."""
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    monkeypatch.delenv("POCO_TPU_YOLO_WEIGHTS", raising=False)
+    monkeypatch.delenv("POCO_TPU_MASKRCNN_WEIGHTS", raising=False)
+    monkeypatch.setitem(sys.modules, "torchvision", None)
+    monkeypatch.setitem(sys.modules, "pytube", None)
+    monkeypatch.setattr(demo_utils.shutil, "which", lambda name: None)
+    parent = tmp_path / "parent"
+    for sub in ("a", "b"):
+        (parent / sub).mkdir(parents=True)
+        for name in sorted(os.listdir(frame_folder))[:2]:
+            (parent / sub / name).write_bytes((Path(frame_folder) / name).read_bytes())
+    folder = str(parent if "directory" in flags else frame_folder)
+    argv = ["--cfg", TINY_YAML, *flags, "--image_folder", folder, "--output_folder",
+            str(tmp_path / "out"), "--max_frames", "2", "--yolo_weights",
+            str(tmp_path / "absent.weights"), "--device", "cpu"]
+    if flags[:2] == ["--mode", "webcam"]:
+        with pytest.raises(RuntimeError, match=CAMERA_ERROR):
+            cli_demo.main(argv)
+        return
+    if "--vid_file" in flags:
+        with pytest.raises(SystemExit, match=re.escape(YOUTUBE_EXIT)):
+            cli_demo.main(argv)
+        return
+    results = cli_demo.main(argv)
+    out = capsys.readouterr().out
+    if "--display" in flags:
+        assert out.count(DISPLAY_NOTICE) == 1
+    if "maskrcnn" in flags:
+        assert MASKRCNN_NOTICE in out and "falling back to --detector refine" in out
+    if "directory" in flags:
+        assert sorted(results) == ["a", "b"]
+        assert all(len(os.listdir(tmp_path / "out" / sub)) == 2 for sub in results)
+    else:
+        assert len(results) == (1 if "video" in flags else 4)
 
 
 def test_cli_yolo_without_weights_turns_into_refine(monkeypatch, tmp_path, frame_folder, capsys):
@@ -676,12 +759,21 @@ def test_cli_yolo_without_weights_turns_into_refine(monkeypatch, tmp_path, frame
     assert "falling back to --detector refine" in capsys.readouterr().out
 
 
-def test_cli_video_file_needs_ffmpeg(monkeypatch, tmp_path):
+def test_cli_video_file_needs_ffmpeg(monkeypatch, tmp_path, frame_folder):
+    """Without ffmpeg and cv2, `video_to_images` raises,
+    naming both, for a file that is not a Motion-JPEG AVI, and
+    `images_to_video` writes Motion-JPEG to `<stem>.avi` in place of the
+    mp4 (tests/test_torch_live_sources.py holds both routes)."""
     monkeypatch.setattr(demo_utils.shutil, "which", lambda name: None)
-    with pytest.raises(RuntimeError, match="ffmpeg"):
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    (tmp_path / "x.mp4").write_bytes(b"\0\0\0\x18ftypmp42")
+    with pytest.raises(RuntimeError, match="ffmpeg on PATH or cv2"):
         demo_utils.video_to_images(str(tmp_path / "x.mp4"), str(tmp_path / "frames"))
-    with pytest.raises(RuntimeError, match="ffmpeg"):
-        demo_utils.images_to_video(str(tmp_path), str(tmp_path / "x.mp4"))
+    written = demo_utils.images_to_video(frame_folder, str(tmp_path / "x_poco.mp4"))
+    assert written == str(tmp_path / "x_poco.avi") and not (tmp_path / "x_poco.mp4").exists()
+    from poco_tpu_torch.utils.mjpeg import read_avi_mjpeg
+
+    assert len(list(read_avi_mjpeg(written))) == 4
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(frame_folder):
@@ -695,15 +787,24 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(frame_folder):
 # what the demo's modules import
 # --------------------------------------------------------------------------
 
-DEMO_MODULES = ["demo/tester.py", "demo/tracker.py", "demo/yolo.py", "cli/demo.py",
-                "data/inference.py", "viz/renderer.py", "runtime/raster.py",
-                "runtime/image_write.py", "utils/demo_utils.py", "utils/smooth_bbox.py",
-                "utils/one_euro.py", "utils/smooth_pose.py", "utils/kp_utils.py"]
+DEMO_MODULES = ["demo/tester.py", "demo/tracker.py", "demo/yolo.py", "demo/stream.py",
+                "cli/demo.py", "data/inference.py", "viz/renderer.py", "runtime/raster.py",
+                "runtime/image_write.py", "utils/demo_utils.py", "utils/mjpeg.py",
+                "utils/smooth_bbox.py", "utils/one_euro.py", "utils/smooth_pose.py",
+                "utils/kp_utils.py"]
 
 
 @pytest.mark.parametrize("module", DEMO_MODULES)
 def test_demo_module_imports_no_jax_opencv_or_pil(module):
-    for node in ast.walk(ast.parse((REPO / "poco_tpu_torch" / module).read_text())):
+    """No JAX, flax, JAX package or PIL import anywhere in the module; cv2,
+    torchvision and pytube only inside the functions that use them (the
+    JAX package's optional routes)."""
+    tree = ast.parse((REPO / "poco_tpu_torch" / module).read_text())
+    in_functions = {id(node) for fn in ast.walk(tree)
+                    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    for node in ast.walk(fn)}
+    for node in ast.walk(tree):
+        optional_here = id(node) in in_functions
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
@@ -711,12 +812,14 @@ def test_demo_module_imports_no_jax_opencv_or_pil(module):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "flax", "poco_tpu", "cv2", "PIL"), name
+            assert name.split(".")[0] not in ("jax", "flax", "poco_tpu", "PIL"), name
+            if not optional_here:
+                assert name.split(".")[0] not in ("cv2", "torchvision", "pytube"), name
 
 
 def test_demo_imports_with_jax_cv2_and_pil_hidden():
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'cv2', 'PIL', 'poco_tpu'):\n"
+            "for m in ('jax', 'flax', 'cv2', 'PIL', 'poco_tpu', 'torchvision', 'pytube'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import poco_tpu_torch.{m[:-3].replace('/', '.')}\n" for m in DEMO_MODULES))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120)

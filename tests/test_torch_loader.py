@@ -474,10 +474,20 @@ def _port_sources():
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_no_opencv(path):
-    """No import of cv2 anywhere in the file, function bodies included, nor
-    an `importlib.import_module` / `__import__` of it (docstrings that cite
-    cv2's conventions may stay)."""
-    for node in ast.walk(ast.parse(path.read_text())):
+    """No import of cv2 outside a function body, nor an
+    `importlib.import_module` / `__import__` of it there (docstrings that
+    cite cv2's conventions may stay): the port imports and runs without
+    OpenCV, and takes the JAX package's cv2 routes (the demo's video files,
+    cameras and window) only inside the calls that use them, where cv2 is
+    installed (`test_port_reads_with_cv2_hidden`,
+    tests/test_torch_live_sources.py)."""
+    tree = ast.parse(path.read_text())
+    in_functions = {id(node) for fn in ast.walk(tree)
+                    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    for node in ast.walk(fn)}
+    for node in ast.walk(tree):
+        if id(node) in in_functions:
+            continue
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):

@@ -233,18 +233,31 @@ class TestNonFiniteIndices:
         _close(kp, jkp)
         _close(conf, jconf)
 
+    # finite points far and just outside the 5 x 6 map of the test below,
+    # on each axis and both sides: x at +-(1 + 2/(6-1)) is one tap past the
+    # edge, y at +-(1 + 2/(5-1)); 1.05 still takes part of the edge tap
+    FAR_POINTS = [(s * v, 0.3) for s in (1, -1) for v in (1e30, 1e6, 1.4, 1.05)] + \
+        [(-0.2, s * v) for s in (1, -1) for v in (1e30, 1e6, 1.5, 1.05)]
+
     def test_grid_sample_bilinear(self):
         """`models/layers.py:grid_sample_bilinear` (PARE's keypoint
         features): `F.grid_sample` bounds-checks every tap, so a NaN,
         infinite or far coordinate reads nothing out of range; NaN where
-        JAX's is, zero where the point lies outside."""
+        JAX's is, zero where the point lies outside. The finite points
+        past the edge (`FAR_POINTS`, clamped before the call) equal JAX's:
+        zeros, and the edge tap's share at 1.05."""
         feats = np.random.RandomState(1).randn(2, 4, 5, 6).astype(np.float32)
-        uv = np.random.RandomState(2).uniform(-1, 1, (2, 5, 2)).astype(np.float32)
+        uv = np.random.RandomState(2).uniform(-1, 1, (2, 5 + len(self.FAR_POINTS), 2))
+        uv = uv.astype(np.float32)
         uv[0, 1], uv[0, 2, 0], uv[1, 3], uv[1, 4, 1] = np.nan, np.inf, 1e30, -np.inf
+        uv[:, 5:] = self.FAR_POINTS
         port = tlayers.grid_sample_bilinear(torch.from_numpy(feats), torch.from_numpy(uv))
         ref = jlayers.grid_sample_bilinear(jnp.asarray(feats), jnp.asarray(uv))
         _same_nans(port, ref)
         _close(port, ref)
+        far = [i for i, (x, y) in enumerate(self.FAR_POINTS) if max(abs(x), abs(y)) > 1.1]
+        assert np.abs(np.asarray(ref)[:, :, [5 + i for i in far]]).max() < 1e-6
+        assert np.abs(np.asarray(ref)[:, :, 5:]).max() > 0.01
 
     def test_part_labels_and_segmentation_loss(self):
         """`losses/segmentation.py:31` gathers at the GT part labels, which

@@ -10,10 +10,12 @@ relative, var within 2e-3: `_assert_result_close`) and the written
 frame to a 256-px bucket for XLA; the port dispatches frames at their
 own size, and the results agree all the same. In the port, the
 pipelined and the sequential stream give bit-identical results and
-frames. Camera and stream-URL sources raise, naming the ROADMAP item.
+frames. A camera or stream that does not open raises the JAX package's
+error (the sources that do open: tests/test_torch_live_sources.py).
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -101,10 +103,23 @@ def test_pipelined_and_sequential_streams_are_bit_identical(testers, frame_folde
                 np.testing.assert_array_equal(ra[k], rb[k], err_msg=k)
 
 
-def test_open_source_refuses_cameras_and_urls(frame_folder):
+def test_open_source_refuses_cameras_and_urls(frame_folder, monkeypatch):
+    """`open_source` as the JAX package's: a directory replays (at most
+    `max_frames`); a camera index or a stream URL goes to cv2.VideoCapture
+    where cv2 is installed, and one that does not open (no camera here; a
+    loopback stream where nothing listens) raises JAX's RuntimeError, word
+    for word. Without cv2, a camera raises naming cv2."""
     assert len(stream.open_source(frame_folder, max_frames=2).files) == 2
-    for spec in ("0", "webcam:1", "rtsp://camera/stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
+    assert len(jax_stream.open_source(frame_folder, max_frames=2).files) == 2
+    for spec in ("0", "webcam:1", "rtsp://127.0.0.1:1/stream"):
+        with pytest.raises(RuntimeError) as got:
+            stream.open_source(spec)
+        with pytest.raises(RuntimeError) as want:
+            jax_stream.open_source(spec)
+        assert str(got.value) == str(want.value)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for spec in ("0", "webcam:1"):
+        with pytest.raises(RuntimeError, match="needs cv2.VideoCapture"):
             stream.open_source(spec)
 
 
