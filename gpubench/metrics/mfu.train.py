@@ -1,0 +1,7 @@
+"""The steps' model FLOPs (forward and backward) over the stretch's wall
+time and the peak."""
+from bench.readers import mfu_percent
+
+
+def read(summary):
+    return mfu_percent(summary)
