@@ -364,12 +364,14 @@ from poco_tpu_torch.smpl import lbs as lbs_module
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.smpl.lbs import smpl_forward
 from poco_tpu_torch.train.step import TRAIN_STAGES
+from poco_tpu_torch.utils import spans
 from poco_tpu_torch.utils.weights import calibrate_batchnorm, randomize_batchnorm
 
 REPO = Path(__file__).resolve().parent
 # profiler ranges, which the profile mirrors on the device but are not
-# kernels: the steps' stages and torch.optim's own ("Optimizer.step#Adam.step")
-RANGES = set(EVAL_STAGES) | set(TRAIN_STAGES)
+# kernels: the port's spans (the steps' stages among them) and torch.optim's
+# own ("Optimizer.step#Adam.step")
+RANGES = set(spans.names())
 
 
 def is_range(name: str) -> bool:

@@ -16,7 +16,11 @@ fp16 on the device (vertices and 3D joints on the folder path, and the
 writes each overlay under its input's own name and format (`x.jpg` as a
 JPEG, `runtime/image_write.write_image`), as the JAX demo does; the
 video mode writes `%06d.png`. `stage_seconds` sums host-clock seconds by stage
-(decode, detect, poco, smooth, render, write).
+(decode, detect, poco, smooth, render, write), each stage also a span
+(`utils/spans.py`). Nothing synchronizes at a stage's end: for a stage
+that runs on the card, its seconds are the time to enqueue its work plus
+the waits where it reads results back, and work it only enqueues counts
+to the stage that next waits for the card.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..ops.preprocess import normalize_image, preprocess_crops
 from ..runtime.image_write import write_image, write_png
 from ..runtime.loader import read_image_rgb, read_images_rgb
 from ..smpl.lbs import SmplParams
+from ..utils import spans
 from ..utils.demo_utils import (
     convert_crop_cam_to_orig_img,
     convert_crop_coords_to_orig_img,
@@ -91,14 +96,18 @@ def detect_forward(
     Returns:
         The model's output dict for the N boxes.
     """
-    device = next(model.parameters()).device
-    batch = preprocess_crops(
-        _on_device(image_uint8_hwc, device, torch.uint8),
-        _on_device(centers, device, torch.float32),
-        _on_device(scales, device, torch.float32),
-        true_hw=None if true_hw is None else _on_device(true_hw, device, torch.float32),
-    )
-    return model(batch, smpl)
+    with spans.span(spans.REQUEST):
+        device = next(model.parameters()).device
+        # a pageable copy: the host waits for the card's queue to drain
+        with spans.span(spans.UPLOAD, wait=True):
+            image = _on_device(image_uint8_hwc, device, torch.uint8)
+            centers = _on_device(centers, device, torch.float32)
+            scales = _on_device(scales, device, torch.float32)
+            if true_hw is not None:
+                true_hw = _on_device(true_hw, device, torch.float32)
+        with spans.span(spans.CROP):
+            batch = preprocess_crops(image, centers, scales, true_hw=true_hw)
+        return model(batch, smpl)
 
 
 def _boxes(boxes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -123,6 +132,10 @@ class PocoTester:
         kinematic_uncert: accumulate uncertainty down the kinematic chain
             for colours and logs (the reference demo forces it on unless
             --no_kinematic_uncert, tester.py:59).
+
+    `stage_seconds` holds the host clock's seconds by stage (see the
+    module's docstring): enqueue time and read-back waits for the card's
+    stages, not their card time.
     """
 
     _FETCH_KEYS = (
@@ -156,7 +169,8 @@ class PocoTester:
     def _stage(self, name: str):
         start = time.perf_counter()
         try:
-            yield
+            with spans.span(name):
+                yield
         finally:
             self.stage_seconds[name] += time.perf_counter() - start
 

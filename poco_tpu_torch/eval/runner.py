@@ -28,7 +28,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..constants import (
     PW3D_OCCLUDED_SEQUENCES,
@@ -42,6 +41,7 @@ from ..parallel import distributed
 from ..parallel.mesh import pad_to_multiple
 from ..smpl.lbs import SmplParams, smpl_forward
 from ..train.step import best_model_metric
+from ..utils.spans import EVAL_STAGES, span
 from .metrics import (
     joints_from_vertices,
     mpjpe,
@@ -50,11 +50,6 @@ from .metrics import (
     vertex_error,
 )
 from .uncertainty import prepare_uncert
-
-
-# the eval step's profiler ranges, in the order they run
-EVAL_STAGES = ("eval_step/forward", "eval_step/flip_tta", "eval_step/gt_meshes",
-               "eval_step/joints", "eval_step/metrics")
 
 
 def make_gendered_eval_step(
@@ -83,23 +78,23 @@ def make_gendered_eval_step(
         (-1 neutral, 0 male, 1 female). SMPL forwards a batch: 5, or 4
         with the regressor; 2 more with flip_test.
 
-    Each stage runs in a `torch.profiler.record_function` range named in
-    `EVAL_STAGES` (free when no profiler runs), so a profile of the step
-    splits its device time by stage.
+    Each stage runs in a span (`utils/spans.py`) named in `EVAL_STAGES`
+    (two flag checks when no profiler runs and nothing records), so a
+    profile of the step splits its device time by stage.
     """
     if getattr(model, "training", False):
         raise ValueError("the eval step needs the model in eval mode (model.eval())")
 
     @torch.inference_mode()
     def step(batch: dict, smpl_n: SmplParams, smpl_m: SmplParams, smpl_f: SmplParams):
-        with record_function("eval_step/forward"):
+        with span(EVAL_STAGES[0]):
             out = model(batch, smpl_n)
         pred_verts = out["smpl_vertices"]
         pred_pose_eval = out["pred_pose"]
         pred_shape_eval = out["pred_shape"]
 
         if flip_test:
-            with record_function("eval_step/flip_tta"):
+            with span(EVAL_STAGES[1]):
                 fb = dict(batch)
                 fb["img"] = batch["img"].flip(2)  # NHWC: mirror the width
                 if "bbox_info" in fb:
@@ -122,7 +117,7 @@ def make_gendered_eval_step(
                 pred_shape_eval = 0.5 * (out["pred_shape"] + out_flip["pred_shape"])
                 pred_verts = smpl_forward(smpl_n, pred_shape_eval, pred_pose_eval).vertices
 
-        with record_function("eval_step/gt_meshes"):
+        with span(EVAL_STAGES[2]):
             bsz = batch["pose"].shape[0]
             gt_rotmat = axis_angle_to_rotmat(
                 batch["pose"].float().reshape(-1, 3)
@@ -141,7 +136,7 @@ def make_gendered_eval_step(
             gt_verts = by_gender(out_f.vertices, out_m.vertices, out_n.vertices)
             gt_joints24 = by_gender(out_f.joints_lbs, out_m.joints_lbs, out_n.joints_lbs)
 
-        with record_function("eval_step/joints"):
+        with span(EVAL_STAGES[3]):
             if j_regressor_eval is not None:
                 pred_j14 = joints_from_vertices(j_regressor_eval, pred_verts)
                 gt_j14 = joints_from_vertices(j_regressor_eval, gt_verts)
@@ -156,7 +151,7 @@ def make_gendered_eval_step(
                 pred_j14 = pred_j - (pred_j[:, 2:3] + pred_j[:, 3:4]) / 2.0
                 gt_j14 = gt_j - (gt_j[:, 2:3] + gt_j[:, 3:4]) / 2.0
 
-        with record_function("eval_step/metrics"):
+        with span(EVAL_STAGES[4]):
             metrics = {
                 "mpjpe": mpjpe(pred_j14, gt_j14),
                 "pa_mpjpe": pa_mpjpe(pred_j14, gt_j14),

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...utils import spans
+
 
 # Coupling masks (reference nf_head.py:20-29): (2 * num_layers, num_rv).
 
@@ -177,8 +179,9 @@ class FlowHead(nn.Module):
             (B, P * 9 / num_nf_rv) per-part log-likelihoods.
         """
         batch = pred_pose.shape[0]
-        pred = pred_pose[:, self.sel_parts]
-        gt = gt_pose_rotmat[:, self.sel_parts]
+        with spans.span(spans.SYNC_FLOW_PARTS, wait=True):   # the list index goes to the card
+            pred = pred_pose[:, self.sel_parts]
+            gt = gt_pose_rotmat[:, self.sel_parts]
         sigma = torch.ones_like(pred) if var_pose is None else var_pose
         if sigma.ndim == 2:
             sigma = sigma[:, :, None, None].expand(-1, -1, 3, 3)

@@ -5,6 +5,8 @@ and hmr.py, the plain-HMR baseline of METHOD=spin): every backbone and
 head family of the JAX registry.
 Submodules carry the reference names `backbone`, `head`, `uncert_head`
 and `flow_head`, so their state_dict keys are the reference checkpoint's.
+`_forward` runs each part in a span (`utils/spans.py`): `poco/backbone`,
+`poco/head`, `poco/smpl` (SMPL and the cameras), `poco/uncert`, `poco/flow`.
 
 Batch dict (the JAX package's layout):
     img          (B, 224, 224, 3)  normalized crop, NHWC
@@ -35,6 +37,7 @@ from torch import nn
 from ..device import resolve_device
 from ..smpl.lbs import SmplParams
 from ..smpl.model import smpl_head, smplcam_head
+from ..utils import spans
 from .backbones import resnet
 from .backbones.common import flax_variance_update
 from .backbones.hrnet import hrnet_w32, hrnet_w48, hrnet_w48_cls, hrnet_w64
@@ -181,14 +184,16 @@ class POCO(nn.Module):
 
     def _forward(self, batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict[str, Any]:
         cfg = self.cfg
-        features = self.backbone(batch["img"].permute(0, 3, 1, 2))
-        head_out = (self.head(features, batch["bbox_info"]) if cfg.head_name == "cliff"
-                    else self.head(features))
+        with spans.span(spans.BACKBONE):
+            features = self.backbone(batch["img"].permute(0, 3, 1, 2))
+        with spans.span(spans.HEAD):
+            head_out = (self.head(features, batch["bbox_info"]) if cfg.head_name == "cliff"
+                        else self.head(features))
         # SMPL and the cameras run outside a bf16 autocast (PRECISION: 16):
         # SMPL in fp32, as the JAX package promotes a bf16 shape against its
         # fp32 SMPL tensors; the camera in the head's own dtype, as JAX
         # computes a bf16 camera's translation (POCO-PARE's) in bf16
-        with torch.autocast(features.device.type, enabled=False):
+        with spans.span(spans.SMPL), torch.autocast(features.device.type, enabled=False):
             rotmat, shape = (_full_precision(head_out[k]) for k in ("pred_pose", "pred_shape"))
             cam = head_out["pred_cam"]
             if cfg.head_name == "cliff":
@@ -224,22 +229,24 @@ class POCO(nn.Module):
             output["pred_fullimg_cam_t"] = s.fullimg_cam_t
         if cfg.has_uncert_head:
             cond = cfg.gt_pose_cond
-            output.update(self.uncert_head(
-                head_out["uncert_feat"],
-                head_out["pred_pose"],
-                gt_pose_rotmat=batch.get("gt_pose_rotmat") if cond else None,
-                gt_pose_cond_mask=batch.get("gt_pose_cond_mask") if cond else None,
-            ))
+            with spans.span(spans.UNCERT):
+                output.update(self.uncert_head(
+                    head_out["uncert_feat"],
+                    head_out["pred_pose"],
+                    gt_pose_rotmat=batch.get("gt_pose_rotmat") if cond else None,
+                    gt_pose_cond_mask=batch.get("gt_pose_cond_mask") if cond else None,
+                ))
         # The flow log-likelihood exists only with a GT pose (reference
         # nf_head.py:128-130 returns None at inference).
         output["log_phi"] = None
         if cfg.has_flow_head and "gt_pose_rotmat" in batch:
-            output["log_phi"] = self.flow_head(
-                head_out["uncert_feat"],
-                head_out["pred_pose"],
-                batch["gt_pose_rotmat"],
-                output.get("var_pose"),
-            )
+            with spans.span(spans.FLOW):
+                output["log_phi"] = self.flow_head(
+                    head_out["uncert_feat"],
+                    head_out["pred_pose"],
+                    batch["gt_pose_rotmat"],
+                    output.get("var_pose"),
+                )
         return output
 
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import FOCAL_LENGTH, IMG_RES
+from ..utils import spans
 
 
 def weak_perspective_to_perspective(
@@ -40,7 +41,8 @@ def perspective_projection(
         points = torch.einsum("bij,bkj->bki", rotation, points)
     points = points + translation[:, None, :]
     proj = points[..., :2] / points[..., 2:3]
-    f = torch.as_tensor(focal_length, dtype=points.dtype, device=points.device)
+    with spans.span(spans.SYNC_FOCAL, wait=True):   # a number goes to the card
+        f = torch.as_tensor(focal_length, dtype=points.dtype, device=points.device)
     if f.ndim == 0:
         f = f.expand(points.shape[0])
     proj = proj * f[:, None, None]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import IMG_NORM_MEAN, IMG_NORM_STD, IMG_RES
+from ..utils import spans
 
 
 def crop_transform_params(
@@ -157,8 +158,9 @@ def crop_and_resize_mxu(
 
 def normalize_image(crops: torch.Tensor, max_val: float = 255.0) -> torch.Tensor:
     """ImageNet normalization of (..., 3) RGB in [0, max_val]."""
-    mean = torch.tensor(IMG_NORM_MEAN, dtype=torch.float32, device=crops.device)
-    std = torch.tensor(IMG_NORM_STD, dtype=torch.float32, device=crops.device)
+    with spans.span(spans.SYNC_NORM, wait=True):
+        mean = torch.tensor(IMG_NORM_MEAN, dtype=torch.float32, device=crops.device)
+        std = torch.tensor(IMG_NORM_STD, dtype=torch.float32, device=crops.device)
     return (crops / max_val - mean) / std
 
 
@@ -208,7 +210,8 @@ def preprocess_crops(
     crops = crop_and_resize(image, centers, scales * 200.0, out_res=out_res)
     batch = centers.shape[0]
     if true_hw is None:
-        true_hw = torch.tensor([h, w], dtype=torch.float32, device=image.device)
+        with spans.span(spans.SYNC_TRUE_HW, wait=True):
+            true_hw = torch.tensor([h, w], dtype=torch.float32, device=image.device)
     true_hw = true_hw.float()
     orig_shape = true_hw.expand(batch, 2)
     return {

@@ -27,6 +27,7 @@ import torch
 
 from ..ops.skinning import skinning
 from ..parallel import distributed
+from ..utils import spans
 
 _TENSOR_FIELDS = (
     "v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights",
@@ -132,7 +133,8 @@ def batch_rigid_transform(
     parents = [int(p) for p in parents]
 
     rel_joints = joints.clone()
-    rel_joints[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
+    with spans.span(spans.SYNC_PARENTS, wait=True):   # the list index goes to the card
+        rel_joints[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
 
     tfm = torch.zeros(
         (batch, num_joints, 4, 4), dtype=rotmats.dtype, device=rotmats.device
@@ -213,7 +215,8 @@ def smpl_forward(
         group = params.shard.group
         extra_joints = distributed.model_partial_sum(extra_joints, group)
         verts = distributed.model_gather(verts, group, params.shard.counts, dim=1)
-    ids = torch.as_tensor(params.vertex_joint_ids, device=verts.device)
+    with spans.span(spans.SYNC_VERTEX_IDS, wait=True):
+        ids = torch.as_tensor(params.vertex_joint_ids, device=verts.device)
     vertex_joints = verts[:, ids]
     joints = torch.cat([joints_lbs, vertex_joints, extra_joints], dim=1)
     return SmplOutput(vertices=verts, joints=joints, joints_lbs=joints_lbs)

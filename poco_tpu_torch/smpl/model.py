@@ -17,6 +17,7 @@ from ..ops.camera import (
     perspective_projection,
     weak_perspective_to_perspective,
 )
+from ..utils import spans
 from .lbs import SmplParams, smpl_forward
 
 
@@ -33,7 +34,8 @@ def smpl_49(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SMPL forward -> (vertices (B, V, 3), joints49 (B, 49, 3))."""
     out = smpl_forward(params, betas, pose_rotmats)
-    joint_map = torch.as_tensor(JOINT_MAP_49, device=out.joints.device)
+    with spans.span(spans.SYNC_JOINT_MAP, wait=True):
+        joint_map = torch.as_tensor(JOINT_MAP_49, device=out.joints.device)
     return out.vertices, out.joints[:, joint_map]
 
 

@@ -10,8 +10,9 @@ Replaces the reference's LitModule.training_step / validation_step
     labels when the render or part-segmentation loss is on
     (`ops/soft_raster.py`);
   * `make_train_step` runs the model in train mode, `poco_loss`, the
-    backward and the optimizer step, each in a `record_function` range of
-    TRAIN_STAGES, so a profile splits the step's device time by stage.
+    backward and the optimizer step inside the root span `train_step`,
+    each stage in a span of TRAIN_STAGES (`utils/spans.py`), so a profile
+    splits the step's device time by stage and a recording its host time.
 
 On a CUDA device a step launches the skinning kernel twice (the GT mesh
 and the prediction) and its backward kernel once. With more than one
@@ -23,7 +24,6 @@ and returns the loss terms of the global batch.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..constants import FOCAL_LENGTH, IMG_RES, J24_TO_J14
 from ..losses.losses import LossConfig, poco_loss
@@ -34,10 +34,7 @@ from ..ops.soft_raster import soft_part_probs, soft_silhouette
 from ..parallel import distributed
 from ..smpl.lbs import SmplParams
 from ..smpl.model import smpl_49
-
-# the train step's profiler ranges, in the order they run
-TRAIN_STAGES = ("train_step/gt", "train_step/forward", "train_step/backward",
-                "train_step/optimizer")
+from ..utils.spans import TRAIN_STAGES, TRAIN_STEP, span
 
 
 @torch.no_grad()
@@ -127,17 +124,21 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
     (`render_targets`), and the forward stage the prediction's silhouette.
     """
     def step(batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict:
-        with record_function(TRAIN_STAGES[0]):
+        with span(TRAIN_STEP):
+            return _step(batch, smpl)
+
+    def _step(batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict:
+        with span(TRAIN_STAGES[0]):
             gt = prepare_gt(batch, smpl)
             gt.update(render_targets(batch, gt, smpl, loss_cfg))
-        with record_function(TRAIN_STAGES[1]):
+        with span(TRAIN_STAGES[1]):
             model.train()
             model_batch = dict(batch, gt_pose_rotmat=gt["gt_pose_rotmat"])
             with compute_precision(batch["img"].device.type, autocast_dtype):
                 out = model(model_batch, smpl)
             out = add_pred_render(_fp32(out), gt)
             loss, loss_dict = poco_loss(out, gt, loss_cfg)
-        with record_function(TRAIN_STAGES[2]):
+        with span(TRAIN_STAGES[2]):
             optimizer.zero_grad()
             loss.backward()
             # each data shard's loss is its share of the global one: the
@@ -145,7 +146,7 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig = LossConfig(),
             # gradient (a model group's, equal but for the card's last
             # bits, are averaged)
             distributed.all_reduce_gradients(optimizer.params)
-        with record_function(TRAIN_STAGES[3]):
+        with span(TRAIN_STAGES[3]):
             grad_norm = optimizer.step()
         metrics = global_loss_terms({k: v.detach() for k, v in loss_dict.items()})
         metrics["grad_norm"] = grad_norm
