@@ -70,9 +70,96 @@ def draw_keypoints_2d(frame: np.ndarray, joints2d: np.ndarray, radius: int = 3) 
 
 
 def _on_device(x, device, dtype):
+    """`x` as a `dtype` tensor on `device`. A host array bound for a card is
+    staged through pinned memory (torch's caching host allocator, which
+    keeps the block until the copy is done) and copied without waiting: a
+    copy from pageable memory waits for the card's queue to drain. A card
+    tensor is cast on its device."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return torch.as_tensor(x).to(device=device, dtype=dtype)
+    x = torch.as_tensor(x)
+    if torch.device(device).type == "cuda" and x.device.type == "cpu":
+        return x.to(dtype).pin_memory().to(device, non_blocking=True)
+    return x.to(device=device, dtype=dtype)
+
+
+class RequestOutputs(dict):
+    """The outputs of a request answered on a card, a dict of the model's
+    outputs made on the port's request stream. Reading a value (by key,
+    `get`, `values`, `items`, `pop`, `copy`, or `dict(...)` / `{**...}` of
+    it) first makes the reader's current stream wait on the request's
+    `done` event, once a stream. So the fetch of a request waits for that
+    request alone, and not for the requests dispatched after it, which a
+    wait made when the request returned would have put in the caller's
+    stream before the fetch. The values are recorded on the caller's stream
+    for the caching allocator (`Tensor.record_stream`); a reader on another
+    stream that frees them while its reads are queued records its own."""
+
+    def __init__(self, outputs: dict, done: torch.cuda.Event, device: torch.device):
+        super().__init__(outputs)
+        self.done, self.device = done, device
+        self._waited: set[int] = set()
+
+    def _ready(self) -> None:
+        stream = torch.cuda.current_stream(self.device)
+        if stream.cuda_stream not in self._waited:
+            stream.wait_event(self.done)
+            self._waited.add(stream.cuda_stream)
+
+    def __getitem__(self, key):
+        self._ready()
+        return super().__getitem__(key)
+
+    def __iter__(self):
+        # a dict subclass with its own __iter__ is copied (dict(...), {**...},
+        # update) through keys() and __getitem__, not from its storage
+        return super().__iter__()
+
+    def get(self, key, default=None):
+        self._ready()
+        return super().get(key, default)
+
+    def values(self):
+        self._ready()
+        return super().values()
+
+    def items(self):
+        self._ready()
+        return super().items()
+
+    def pop(self, *args):
+        self._ready()
+        return super().pop(*args)
+
+    def copy(self) -> dict:
+        return dict(self)
+
+
+_REQUEST_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+_LAST_DONE: dict[torch.device, torch.cuda.Event] = {}
+
+
+def _request_stream(device: torch.device) -> torch.cuda.Stream:
+    """The port's request stream on `device`: one a device, made once, from
+    torch's pool of non-blocking streams (no implicit order with the
+    legacy default stream)."""
+    stream = _REQUEST_STREAMS.get(device)
+    if stream is None:
+        stream = _REQUEST_STREAMS[device] = torch.cuda.Stream(device=device)
+    return stream
+
+
+def _answer(model, smpl, device, image, centers, scales, true_hw) -> dict[str, Any]:
+    """Upload, crop and the model, on the current stream."""
+    with spans.span(spans.UPLOAD, wait=True):
+        image = _on_device(image, device, torch.uint8)
+        centers = _on_device(centers, device, torch.float32)
+        scales = _on_device(scales, device, torch.float32)
+        if true_hw is not None:
+            true_hw = _on_device(true_hw, device, torch.float32)
+    with spans.span(spans.CROP):
+        batch = preprocess_crops(image, centers, scales, true_hw=true_hw)
+    return model(batch, smpl)
 
 
 @torch.inference_mode()
@@ -86,6 +173,23 @@ def detect_forward(
 ) -> dict[str, Any]:
     """Answer one request.
 
+    On a card the request runs on the port's request stream
+    (`_request_stream`), after the work queued so far on the caller's
+    current stream, and returns without waiting for the card: host inputs
+    go up through pinned memory, the model's constants are on the card
+    already. It returns a `RequestOutputs`, whose reads wait for this
+    request alone. Until an output is read (or the card synchronized), the
+    card may still be reading the request's inputs and the model's weights:
+    a caller that writes to them on its own stream reads an output first.
+    Under `utils/spans.py`'s recording or a profiler, the request opens
+    `poco/ahead` when it starts while the card is still running the
+    request before it (its done event has not fired): the host has run
+    ahead of the card, and the card goes from one request to the next
+    with no gap. (Not as it returns: the card's launch queue holds fewer
+    launches than a request makes, so the host, held at its launches,
+    returns when the card is well into this request.) On the CPU it runs
+    and returns the model's plain dict.
+
     Args:
         model: a POCO in eval mode; its device is the request's device.
         smpl: SMPL weights on the same device.
@@ -98,16 +202,28 @@ def detect_forward(
     """
     with spans.span(spans.REQUEST):
         device = next(model.parameters()).device
-        # a pageable copy: the host waits for the card's queue to drain
-        with spans.span(spans.UPLOAD, wait=True):
-            image = _on_device(image_uint8_hwc, device, torch.uint8)
-            centers = _on_device(centers, device, torch.float32)
-            scales = _on_device(scales, device, torch.float32)
-            if true_hw is not None:
-                true_hw = _on_device(true_hw, device, torch.float32)
-        with spans.span(spans.CROP):
-            batch = preprocess_crops(image, centers, scales, true_hw=true_hw)
-        return model(batch, smpl)
+        inputs = (image_uint8_hwc, centers, scales, true_hw)
+        if device.type != "cuda":
+            return _answer(model, smpl, device, *inputs)
+        before = _LAST_DONE.get(device)
+        if spans.active() and before is not None and not before.query():
+            with spans.span(spans.AHEAD):   # the card is still on the request before
+                pass
+        caller = torch.cuda.current_stream(device)
+        stream = _request_stream(device)
+        stream.wait_stream(caller)
+        for x in inputs:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                x.record_stream(stream)   # the caller's memory, read on this stream
+        with torch.cuda.stream(stream):
+            out = _answer(model, smpl, device, *inputs)
+            done = torch.cuda.Event()
+            done.record(stream)
+        for value in out.values():
+            if isinstance(value, torch.Tensor):
+                value.record_stream(caller)
+        _LAST_DONE[device] = done
+        return RequestOutputs(out, done, device)
 
 
 def _boxes(boxes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -152,7 +152,11 @@ class FlowHead(nn.Module):
         super().__init__()
         self.num_nf_rv = num_nf_rv
         self.num_joints = num_joints
-        self.sel_parts = [j for j in range(num_joints) if j not in exclude_uncert_idx]
+        # the index lives on the module's device (a list index would be
+        # copied to the card at every step, waiting for its queue); not saved
+        self.register_buffer("sel_parts", torch.tensor(
+            [j for j in range(num_joints) if j not in exclude_uncert_idx], dtype=torch.int64),
+            persistent=False)
         self.mask_params_id = list(mask_params_id)
         if cond_nflow:
             self.cond_layer = nn.Linear(num_input_features, context_dim)
@@ -179,7 +183,7 @@ class FlowHead(nn.Module):
             (B, P * 9 / num_nf_rv) per-part log-likelihoods.
         """
         batch = pred_pose.shape[0]
-        with spans.span(spans.SYNC_FLOW_PARTS, wait=True):   # the list index goes to the card
+        with spans.span(spans.SYNC_FLOW_PARTS, wait=True):
             pred = pred_pose[:, self.sel_parts]
             gt = gt_pose_rotmat[:, self.sel_parts]
         sigma = torch.ones_like(pred) if var_pose is None else var_pose

@@ -41,11 +41,13 @@ def perspective_projection(
         points = torch.einsum("bij,bkj->bki", rotation, points)
     points = points + translation[:, None, :]
     proj = points[..., :2] / points[..., 2:3]
-    with spans.span(spans.SYNC_FOCAL, wait=True):   # a number goes to the card
-        f = torch.as_tensor(focal_length, dtype=points.dtype, device=points.device)
-    if f.ndim == 0:
-        f = f.expand(points.shape[0])
-    proj = proj * f[:, None, None]
+    with spans.span(spans.SYNC_FOCAL, wait=True):
+        # a number stays a 0-d host tensor, which a card's kernel takes as
+        # an argument (copied to the card, it would wait for the queue)
+        f = torch.as_tensor(focal_length, dtype=points.dtype)
+        if f.ndim:
+            f = f.to(points.device)[:, None, None]
+    proj = proj * f
     if camera_center is not None:
         proj = proj + camera_center[:, None, :]
     return proj

@@ -156,11 +156,28 @@ def crop_and_resize_mxu(
     return torch.einsum("bjx,bixc->bijc", weight_rows(xs, w), rows)
 
 
+_NORM_CONSTANTS: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _norm_constants(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std on `device`, made once a device (a copy to
+    the card waits for its queue to drain); made anew, and not kept, while
+    torch compiles or exports."""
+    tracing = torch.compiler.is_compiling() or torch.compiler.is_exporting()
+    constants = None if tracing else _NORM_CONSTANTS.get(device)
+    if constants is None:
+        with torch.inference_mode(False), torch.no_grad():
+            constants = tuple(torch.tensor(values, dtype=torch.float32, device=device)
+                              for values in (IMG_NORM_MEAN, IMG_NORM_STD))
+        if not tracing:
+            _NORM_CONSTANTS[device] = constants
+    return constants
+
+
 def normalize_image(crops: torch.Tensor, max_val: float = 255.0) -> torch.Tensor:
     """ImageNet normalization of (..., 3) RGB in [0, max_val]."""
     with spans.span(spans.SYNC_NORM, wait=True):
-        mean = torch.tensor(IMG_NORM_MEAN, dtype=torch.float32, device=crops.device)
-        std = torch.tensor(IMG_NORM_STD, dtype=torch.float32, device=crops.device)
+        mean, std = _norm_constants(crops.device)
     return (crops / max_val - mean) / std
 
 
@@ -211,7 +228,11 @@ def preprocess_crops(
     batch = centers.shape[0]
     if true_hw is None:
         with spans.span(spans.SYNC_TRUE_HW, wait=True):
-            true_hw = torch.tensor([h, w], dtype=torch.float32, device=image.device)
+            # filled on the device (a number set by indexing, like a tensor
+            # made from host numbers, is copied there and waits for its queue)
+            true_hw = torch.empty(2, dtype=torch.float32, device=image.device)
+            true_hw[0].fill_(h)
+            true_hw[1].fill_(w)
     true_hw = true_hw.float()
     orig_shape = true_hw.expand(batch, 2)
     return {

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..constants import JOINT_MAP_49
 from ..ops.skinning import skinning
 from ..parallel import distributed
 from ..utils import spans
@@ -72,6 +73,14 @@ class SmplParams:
         shard: this process's vertex range on the model axis, or None;
             with a shard the vertex arrays hold that range only (their V
             is the shard's), `faces` and `vertex_joint_ids` stay global
+
+    Made from the tuples on `v_template`'s device whenever the params are
+    made or moved (so a forward copies no index to the card, which would
+    wait for the card's queue to drain), the int64 index tensors:
+
+        parent_index: parents[1:]
+        vertex_joint_index: vertex_joint_ids
+        joint_map_49: `constants.JOINT_MAP_49`, the 54 joints to the 49
     """
 
     v_template: torch.Tensor
@@ -84,6 +93,17 @@ class SmplParams:
     parents: tuple
     vertex_joint_ids: tuple
     shard: VertexShard | None = None
+    parent_index: torch.Tensor = dataclasses.field(init=False)
+    vertex_joint_index: torch.Tensor = dataclasses.field(init=False)
+    joint_map_49: torch.Tensor = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        device = self.v_template.device
+        for name, values in (("parent_index", self.parents[1:]),
+                             ("vertex_joint_index", self.vertex_joint_ids),
+                             ("joint_map_49", JOINT_MAP_49)):
+            index = torch.as_tensor([int(i) for i in values], dtype=torch.int64, device=device)
+            object.__setattr__(self, name, index)
 
     def to(self, device) -> "SmplParams":
         return dataclasses.replace(
@@ -116,14 +136,16 @@ def vertices2joints(j_regressor: torch.Tensor, verts: torch.Tensor) -> torch.Ten
 
 
 def batch_rigid_transform(
-    rotmats: torch.Tensor, joints: torch.Tensor, parents
+    rotmats: torch.Tensor, joints: torch.Tensor, parents, parent_index
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward-kinematics chain.
 
     Args:
         rotmats: (B, J, 3, 3) per-joint local rotations.
         joints: (B, J, 3) rest-pose joint locations.
-        parents: length-J parent table.
+        parents: length-J parent table, for the host's loop over joints.
+        parent_index: parents[1:] as an index on the joints' device
+            (`SmplParams.parent_index`), for the gather.
     Returns:
         posed_joints: (B, J, 3) world-frame joint positions.
         rel_transforms: (B, J, 4, 4) skinning transforms (world transform
@@ -133,8 +155,8 @@ def batch_rigid_transform(
     parents = [int(p) for p in parents]
 
     rel_joints = joints.clone()
-    with spans.span(spans.SYNC_PARENTS, wait=True):   # the list index goes to the card
-        rel_joints[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
+    with spans.span(spans.SYNC_PARENTS, wait=True):
+        rel_joints[:, 1:] = joints[:, 1:] - joints[:, parent_index]
 
     tfm = torch.zeros(
         (batch, num_joints, 4, 4), dtype=rotmats.dtype, device=rotmats.device
@@ -189,7 +211,7 @@ def lbs(
     v_posed = v_shaped + pose_offsets
 
     joints_posed, rel_tfms = batch_rigid_transform(
-        pose_rotmats, j_rest, params.parents
+        pose_rotmats, j_rest, params.parents, params.parent_index
     )
     rel_tfms = into_shard(rel_tfms)
     verts = skinning(
@@ -216,7 +238,7 @@ def smpl_forward(
         extra_joints = distributed.model_partial_sum(extra_joints, group)
         verts = distributed.model_gather(verts, group, params.shard.counts, dim=1)
     with spans.span(spans.SYNC_VERTEX_IDS, wait=True):
-        ids = torch.as_tensor(params.vertex_joint_ids, device=verts.device)
+        ids = params.vertex_joint_index
     vertex_joints = verts[:, ids]
     joints = torch.cat([joints_lbs, vertex_joints, extra_joints], dim=1)
     return SmplOutput(vertices=verts, joints=joints, joints_lbs=joints_lbs)

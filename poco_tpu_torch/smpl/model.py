@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..constants import FOCAL_LENGTH, IMG_RES, JOINT_MAP_49
+from ..constants import FOCAL_LENGTH, IMG_RES
 from ..ops.camera import (
     crop_cam_to_full_img_cam,
     perspective_projection,
@@ -35,7 +35,7 @@ def smpl_49(
     """SMPL forward -> (vertices (B, V, 3), joints49 (B, 49, 3))."""
     out = smpl_forward(params, betas, pose_rotmats)
     with spans.span(spans.SYNC_JOINT_MAP, wait=True):
-        joint_map = torch.as_tensor(JOINT_MAP_49, device=out.joints.device)
+        joint_map = params.joint_map_49
     return out.vertices, out.joints[:, joint_map]
 
 

@@ -46,6 +46,9 @@ HEAD = "poco/head"
 SMPL = "poco/smpl"
 UNCERT = "poco/uncert"
 FLOW = "poco/flow"
+# zero-length, under a request's root, when the request starts while the
+# card is still running the request before it: the host has run ahead
+AHEAD = "poco/ahead"
 # a train step (`train/step.py:make_train_step`) and its stages, in order
 TRAIN_STEP = "train_step"
 TRAIN_STAGES = ("train_step/gt", "train_step/forward", "train_step/backward",
@@ -55,9 +58,10 @@ EVAL_STAGES = ("eval_step/forward", "eval_step/flip_tta", "eval_step/gt_meshes",
                "eval_step/joints", "eval_step/metrics")
 # the demo's stages (`demo/tester.py:PocoTester`)
 DEMO_STAGES = ("decode", "detect", "poco", "smooth", "render", "write")
-# where the host blocks on the card inside a request or a train step, each a
-# small constant made on the host and copied to the card before its kernels
-# may run (a pageable copy waits for the card's queue to drain)
+# around the small constants of a request or a train step that, copied to
+# the card from the host, would block it (a pageable copy waits for the
+# card's queue to drain); they are made on the card, so there these spans
+# hold no wait. The host tables key on their names and `wait` flags.
 SYNC_TRUE_HW = "sync/true_hw"              # ops/preprocess.py:preprocess_crops
 SYNC_NORM = "sync/norm_constants"          # ops/preprocess.py:normalize_image
 SYNC_PARENTS = "sync/parent_index"         # smpl/lbs.py:batch_rigid_transform
@@ -68,7 +72,7 @@ SYNC_FLOW_PARTS = "sync/flow_parts"        # models/heads/flow.py:FlowHead.forwa
 # the spans in which the host blocks on the card
 WAITS = (UPLOAD, SYNC_TRUE_HW, SYNC_NORM, SYNC_PARENTS, SYNC_VERTEX_IDS, SYNC_JOINT_MAP,
          SYNC_FOCAL, SYNC_FLOW_PARTS)
-LAYERS = (REQUEST, UPLOAD, CROP, BACKBONE, HEAD, SMPL, UNCERT, FLOW, TRAIN_STEP)
+LAYERS = (REQUEST, UPLOAD, CROP, BACKBONE, HEAD, SMPL, UNCERT, FLOW, TRAIN_STEP, AHEAD)
 
 
 def names() -> dict[str, bool]:
@@ -130,6 +134,14 @@ class _Span:
         if self.range is not None:
             self.range.__exit__(*exc)
         return False
+
+
+def active() -> bool:
+    """Whether a span opened now would be read (a profiler runs or spans
+    record): for a span whose condition costs more than the span itself."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return False
+    return _records is not None or torch.autograd._profiler_enabled()
 
 
 def span(name: str, wait: bool = False):

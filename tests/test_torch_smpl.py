@@ -69,11 +69,37 @@ def test_smpl_params_to_keeps_static_fields(models):
     assert moved.parents == tp.parents and moved.v_template.device.type == "cpu"
 
 
+def test_smpl_params_index_tensors_follow_the_tuples(models):
+    """The index tensors equal their tuples (and the 49-joint map), int64 on
+    the params' device; `.to` (a dtype too) and a shard remake them from the
+    tuples, `vertex_joint_index` global with a shard."""
+    from poco_tpu_torch.constants import JOINT_MAP_49
+
+    _, tp = models
+
+    def assert_indexes(params):
+        assert params.parent_index.tolist() == list(params.parents[1:])
+        assert params.vertex_joint_index.tolist() == list(params.vertex_joint_ids)
+        assert params.joint_map_49.tolist() == JOINT_MAP_49.tolist()
+        for index in (params.parent_index, params.vertex_joint_index, params.joint_map_49):
+            assert index.dtype == torch.int64 and index.device == params.v_template.device
+
+    assert_indexes(tp)
+    moved = tp.to(torch.float64)
+    assert moved.v_template.dtype == torch.float64
+    assert_indexes(moved)
+    sharded = tlbs.dataclasses.replace(tp, v_template=tp.v_template[:8], shard=tlbs.VertexShard(
+        0, 8, (8, V - 8), None, tp.lbs_weights))
+    assert_indexes(sharded)
+    assert len(sharded.vertex_joint_index) == len(tp.vertex_joint_ids)
+
+
 def test_batch_rigid_transform(models):
     jp, tp = models
     _, rot = _pose(B, 1)
     joints = np.random.RandomState(2).randn(B, 24, 3).astype(np.float32)
-    pj, rel = tlbs.batch_rigid_transform(torch.from_numpy(rot), torch.from_numpy(joints), tp.parents)
+    pj, rel = tlbs.batch_rigid_transform(torch.from_numpy(rot), torch.from_numpy(joints),
+                                         tp.parents, tp.parent_index)
     pj_ref, rel_ref = jax_batch_rigid_transform(jnp.asarray(rot), jnp.asarray(joints), jp.parents)
     _close(pj, pj_ref)
     _close(rel, rel_ref)

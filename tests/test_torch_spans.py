@@ -1,10 +1,14 @@
-"""The port's spans (`poco_tpu_torch/utils/spans.py`): a request
-(`detect_forward`) and a train step of tiny models on the CPU.
+"""The port's spans (`poco_tpu_torch/utils/spans.py`) and the waits they
+name: a request (`detect_forward`) and a train step of tiny models on the
+CPU.
 
 Off, a span opens nothing. Recorded, a request and a step give exactly
 their span names, nested as the code nests them, one root a request or
 step. Under `torch.profiler` every span is a range, nested as recorded.
 An export made while spans record or a profiler runs holds no profiler op.
+A CPU request gives bitwise what it gave with the constants made from
+host numbers at every call (list indexes, `true_hw`, mean and std, the
+focal length as tensors).
 
 Card tests (marker `gpu`; skipped without a card), at full width:
 
@@ -12,15 +16,23 @@ Card tests (marker `gpu`; skipped without a card), at full width:
 
 every synchronizing call of a request (POCO-CLIFF, POCO-PARE) and of a
 POCO-CLIFF train step falls inside a `wait=True` span, by torch's sync
-debug mode; and the device time under `poco/backbone`, `poco/head` and
-`poco/uncert` equals that under the benchmark's forward hooks
-(`gpubench/bench/trace.py:layer_ranges`) within 1%.
+debug mode, and after a warm-up a 128-box request of either model and a
+step at batch 4 make none (sync debug mode "error"); a request's outputs
+fetched after the next request was dispatched are bitwise those fetched at
+once; outputs read on the caller's stream and freed before that read ran
+are not overwritten by the next request; requests dispatched one ahead of
+their fetch start while the card runs the one before and open
+`poco/ahead`; and the device time under `poco/backbone`,
+`poco/head` and `poco/uncert` equals that under the benchmark's forward
+hooks (`gpubench/bench/trace.py:layer_ranges`) within 1%.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import sys
+import threading
 import warnings
 from pathlib import Path
 
@@ -130,6 +142,7 @@ def test_stage_names_are_unchanged():
     names = spans.names()
     assert all(not names[s] for s in TRAIN_STAGES + EVAL_STAGES)
     assert {n for n, wait in names.items() if wait} == set(spans.WAITS)
+    assert spans.AHEAD == "poco/ahead" and names[spans.AHEAD] is False
 
 
 def test_off_opens_nothing(smpl, monkeypatch):
@@ -160,6 +173,60 @@ def test_recorded_request(smpl, kind):
         assert all(root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns for r in inside)
     assert all(r.wait == (r.name in spans.WAITS) for r in records)
     assert len({r.thread for r in records}) == 1
+
+
+def parent_projection(points, translation, focal_length, camera_center=None, rotation=None):
+    """`ops/camera.py:perspective_projection` as it was: the focal length
+    a tensor on the points' device."""
+    assert rotation is None
+    points = points + translation[:, None, :]
+    proj = points[..., :2] / points[..., 2:3]
+    f = torch.as_tensor(focal_length, dtype=points.dtype, device=points.device)
+    if f.ndim == 0:
+        f = f.expand(points.shape[0])
+    proj = proj * f[:, None, None]
+    if camera_center is not None:
+        proj = proj + camera_center[:, None, :]
+    return proj
+
+
+@pytest.mark.parametrize("kind", ["cliff", "pare"])
+def test_cpu_request_is_bitwise_as_before(smpl, kind, monkeypatch):
+    """`detect_forward` on the CPU against the request made as before the
+    constants were kept: `true_hw`, the ImageNet mean and std made from
+    host numbers, the SMPL gathers by a list (parents), a tensor of the
+    tuple (vertex ids) and of the int32 joint map, and the focal length a
+    tensor. Every output bitwise."""
+    from poco_tpu_torch.constants import IMG_NORM_MEAN, IMG_NORM_STD, JOINT_MAP_49
+    from poco_tpu_torch.ops import preprocess
+    from poco_tpu_torch.smpl import model as smpl_model
+
+    model = tiny_model(kind)
+    frame, centers, scales = request(3)
+    got = detect_forward(model, smpl, frame, centers, scales)
+
+    image, c, s = (torch.from_numpy(x) for x in (frame, centers, scales))
+    true_hw = torch.tensor(frame.shape[:2], dtype=torch.float32)
+    crops = preprocess.crop_and_resize(image, c, s * 200.0)
+    mean = torch.tensor(IMG_NORM_MEAN, dtype=torch.float32)
+    std = torch.tensor(IMG_NORM_STD, dtype=torch.float32)
+    orig_shape = true_hw.expand(len(c), 2)
+    batch = {"img": (crops / 255.0 - mean) / std,
+             "bbox_info": preprocess.calculate_bbox_info(c, s, orig_shape),
+             "focal_length": preprocess.calculate_focal_length(true_hw[0], true_hw[1]).expand(
+                 len(c)),
+             "scale": s, "center": c, "orig_shape": orig_shape}
+    before = dataclasses.replace(smpl)
+    for name, index in (("parent_index", list(smpl.parents[1:])),
+                        ("vertex_joint_index", torch.as_tensor(smpl.vertex_joint_ids)),
+                        ("joint_map_49", torch.as_tensor(JOINT_MAP_49))):
+        object.__setattr__(before, name, index)
+    monkeypatch.setattr(smpl_model, "perspective_projection", parent_projection)
+    with torch.inference_mode():
+        want = model(batch, before)
+    assert type(got) is dict and got.keys() == want.keys()
+    for key, value in want.items():
+        assert (got[key] is None if value is None else torch.equal(got[key], value)), key
 
 
 def test_recorded_train_step(smpl):
@@ -320,3 +387,120 @@ def test_model_spans_carry_the_benchmarks_device_time(cuda, kind):
                          (spans.UNCERT, "gpubench/uncert_head")):
         assert summary["calls"][ours] == summary["calls"][theirs] == 3
         assert ranges[ours] == pytest.approx(ranges[theirs], rel=0.01), ours
+
+
+def fetch(out) -> dict[str, np.ndarray]:
+    """A request's outputs in host memory, as a client fetches them."""
+    return {k: v.cpu().numpy() for k, v in out.items() if v is not None}
+
+
+@pytest.fixture(scope="module")
+def card_smpl():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return synthetic_smpl_model(num_verts=6890, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["cliff", "pare"])
+def test_request_never_syncs(cuda, card_smpl, kind):
+    """After a warm-up, a 128-box request from numpy dispatches without one
+    synchronizing call: sync debug mode "error" raises at any."""
+    model = full_width(kind, cuda)
+    frame, centers, scales = request(boxes=128)
+    fetch(detect_forward(model, card_smpl, frame, centers, scales))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = detect_forward(model, card_smpl, frame, centers, scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.isfinite(fetch(out)["smpl_vertices"]).all()
+
+
+@pytest.mark.gpu
+def test_train_step_never_syncs(cuda, card_smpl):
+    """After a warm-up, a POCO-CLIFF train step at batch 4 runs without one
+    synchronizing call."""
+    model = full_width("cliff", cuda)
+    step = step_of(model)
+    batch = train_batch(b=4, device=cuda)
+    step(batch, card_smpl)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(batch, card_smpl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(metrics["loss/total_loss"]))
+    assert bool(torch.isfinite(metrics["grad_norm"]))
+
+
+@pytest.mark.gpu
+def test_fetch_after_the_next_dispatch_is_bitwise(cuda, card_smpl):
+    """Request N fetched after N+1 was dispatched (the depth-1 client) gives
+    bitwise what N fetched at once gives."""
+    model = full_width("cliff", cuda)
+    first, second = request(0, boxes=128), request(1, boxes=128)
+    at_once = fetch(detect_forward(model, card_smpl, *first))
+    pending = detect_forward(model, card_smpl, *first)
+    following = detect_forward(model, card_smpl, *second)
+    late = fetch(pending)
+    assert late.keys() == at_once.keys()
+    for key in at_once:
+        assert np.array_equal(late[key], at_once[key], equal_nan=True), key
+    assert np.isfinite(fetch(following)["smpl_vertices"]).all()
+
+
+@pytest.mark.gpu
+def test_outputs_read_on_the_callers_stream_outlive_the_next_request(cuda, card_smpl):
+    """An output read on the caller's stream behind a long sleep there, and
+    freed at once, while the next request runs from a thread whose stream
+    does not wait on the caller's: the read sees the output's own values
+    (`record_stream` holds the memory until the caller's stream passes the
+    free), not the next request's."""
+    model = full_width("cliff", cuda)
+    frame, centers, scales = request(0, boxes=128)
+    other = request(1, boxes=128)
+    want = fetch(detect_forward(model, card_smpl, frame, centers, scales))["smpl_vertices"]
+    out = detect_forward(model, card_smpl, frame, centers, scales)
+    vertices = out["smpl_vertices"]
+    torch.cuda._sleep(2_000_000_000)   # ~1 s of the caller's stream
+    read = vertices * 1.0
+    del out, vertices
+
+    def next_request():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            fetch(detect_forward(model, card_smpl, *other))
+
+    thread = threading.Thread(target=next_request)
+    thread.start()
+    thread.join()
+    torch.cuda.synchronize()
+    assert np.array_equal(read.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_depth_one_requests_run_ahead(cuda, card_smpl):
+    """Five 128-box requests of POCO-CLIFF, each dispatched before the one
+    before it is fetched (the frames cells' client): the later four start
+    while the card is still running the request before, so they open
+    `poco/ahead` under their own root; the first, after a drained card,
+    does not."""
+    model = full_width("cliff", cuda)
+    frame, centers, scales = request(0, boxes=128)
+    fetch(detect_forward(model, card_smpl, frame, centers, scales))
+    torch.cuda.synchronize()
+    with spans.recording() as records:
+        pending = None
+        for _ in range(5):
+            current = detect_forward(model, card_smpl, frame, centers, scales)
+            if pending is not None:
+                fetch(pending)
+            pending = current
+        fetch(pending)
+    by_id = {r.id: r for r in records}
+    ahead = [r for r in records if r.name == spans.AHEAD]
+    assert len(ahead) == 4
+    for r in ahead:
+        assert by_id[r.parent].name == spans.REQUEST and r.root == r.parent
+        assert r.end_ns - r.start_ns < 1_000_000
