@@ -383,8 +383,9 @@ def model_config_from_hparams(hparams: CfgNode):
             gt_pose_cond_ratio=p.GT_POSE_COND_RATIO,
         )
     s = hparams.SPIN
+    # "resnet50" is the HMR head's trunk; "<trunk>-<head>" names both (vit_h-hmr2)
     return PocoConfig(
-        backbone=f"{s.BACKBONE}-hmr",
+        backbone=s.BACKBONE if "-" in s.BACKBONE else f"{s.BACKBONE}-hmr",
         img_res=hparams.DATASET.IMG_RES,
         uncert_layer="",
         loss_ver="mse",

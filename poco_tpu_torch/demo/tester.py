@@ -37,7 +37,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..constants import IMG_RES
 from ..data.inference import InferenceDataset, images_in_folder
 from ..eval.uncertainty import global_uncert, prepare_uncert
 from ..ops.preprocess import normalize_image, preprocess_crops
@@ -150,7 +149,7 @@ def _request_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 def _answer(model, smpl, device, image, centers, scales, true_hw) -> dict[str, Any]:
-    """Upload, crop and the model, on the current stream."""
+    """Upload, crop (at the model's `img_res`) and the model, on the current stream."""
     with spans.span(spans.UPLOAD, wait=True):
         image = _on_device(image, device, torch.uint8)
         centers = _on_device(centers, device, torch.float32)
@@ -158,7 +157,8 @@ def _answer(model, smpl, device, image, centers, scales, true_hw) -> dict[str, A
         if true_hw is not None:
             true_hw = _on_device(true_hw, device, torch.float32)
     with spans.span(spans.CROP):
-        batch = preprocess_crops(image, centers, scales, true_hw=true_hw)
+        batch = preprocess_crops(image, centers, scales, out_res=model.cfg.img_res,
+                                 true_hw=true_hw)
     return model(batch, smpl)
 
 
@@ -274,6 +274,7 @@ class PocoTester:
         self.batch_size = batch_size
         self.kinematic_uncert = kinematic_uncert
         self.backbone = model.cfg.backbone
+        self.img_res = model.cfg.img_res
         self.loss_ver = model.cfg.loss_ver
         self.faces = smpl.faces.cpu().numpy()
         self.lbs_weights = smpl.all_lbs_weights.cpu().numpy()
@@ -368,7 +369,7 @@ class PocoTester:
         if "cliff" in self.backbone:
             return j2d
         bbox_chw = np.concatenate([centers, np.asarray(sizes)[:, None]], axis=1)
-        return convert_crop_coords_to_orig_img(bbox_chw, j2d, IMG_RES)
+        return convert_crop_coords_to_orig_img(bbox_chw, j2d, self.img_res)
 
     # ------------------------------------------------------------------
     def run_detector(self, image_files: list[str]) -> list[np.ndarray]:
@@ -438,6 +439,7 @@ class PocoTester:
                         _on_device(imgs[i], self.device, torch.uint8),
                         _on_device(c, self.device, torch.float32),
                         _on_device(s, self.device, torch.float32),
+                        out_res=self.img_res,
                     ))
             j2d = np.zeros((0, 0, 2), np.float32)
             gvar = np.zeros(0, np.float32)
@@ -661,6 +663,7 @@ class PocoTester:
                 frames=track["frames"],
                 bboxes=track.get("bbox"),
                 joints2d=track.get("joints2d"),
+                crop_size=self.img_res,
             )
             with self._stage("decode"):
                 batch = dataset.load_all()

@@ -2,14 +2,17 @@
 
 Port of `poco_tpu.models.poco` (reference pocolib/models/poco.py:12-129
 and hmr.py, the plain-HMR baseline of METHOD=spin): every backbone and
-head family of the JAX registry.
+head family of the JAX registry, and HMR 2.0 (`vit_h-hmr2`, Goel et al.,
+"Humans in 4D", ICCV 2023): the ViT-H trunk on the centre 192 columns of
+a 256-px crop and the cross-attention decoder head, a plain regressor with
+no uncertainty or flow head, as the HMR baseline is.
 Submodules carry the reference names `backbone`, `head`, `uncert_head`
 and `flow_head`, so their state_dict keys are the reference checkpoint's.
 `_forward` runs each part in a span (`utils/spans.py`): `poco/backbone`,
 `poco/head`, `poco/smpl` (SMPL and the cameras), `poco/uncert`, `poco/flow`.
 
 Batch dict (the JAX package's layout):
-    img          (B, 224, 224, 3)  normalized crop, NHWC
+    img          (B, R, R, 3)      normalized crop, NHWC (R = img_res)
     bbox_info    (B, 3)            CLIFF bbox descriptor    [cliff head]
     focal_length (B,)              full-image focal length  [cliff head]
     scale        (B,)              bbox height / 200        [cliff head]
@@ -42,9 +45,11 @@ from .backbones import resnet
 from .backbones.common import flax_variance_update
 from .backbones.hrnet import hrnet_w32, hrnet_w48, hrnet_w48_cls, hrnet_w64
 from .backbones.tiny import tiny_cls, tiny_pose
+from .backbones.vit import vit_h
 from .heads.cliff import CliffHead
 from .heads.flow import FlowHead
 from .heads.hmr import HmrHead
+from .heads.hmr2 import Hmr2Head
 from .heads.pare import PareHead
 from .heads.poco_uncert import PocoUncertHead
 
@@ -64,7 +69,9 @@ BACKBONES = {
     "hrnet_w64": hrnet_w64,
     "tiny": tiny_cls,
     "tiny_pose": tiny_pose,
+    "vit_h": vit_h,
 }
+HEADS = ("cliff", "pare", "hmr", "hmr2")
 
 
 COMPUTE_DTYPES = {"fp32": None, "bf16": torch.bfloat16}
@@ -138,10 +145,8 @@ class POCO(nn.Module):
                 f"backbone {cfg.backbone_name!r} is not in the registry "
                 f"({sorted(BACKBONES)})"
             )
-        if cfg.head_name not in ("cliff", "pare", "hmr"):
-            raise NotImplementedError(
-                f"head {cfg.head_name!r}: the heads are cliff, pare and hmr"
-            )
+        if cfg.head_name not in HEADS:
+            raise NotImplementedError(f"head {cfg.head_name!r}: the heads are {HEADS}")
         self.cfg = cfg
         self.backbone = BACKBONES[cfg.backbone_name]()
         n_feat = self.backbone.out_channels
@@ -149,6 +154,8 @@ class POCO(nn.Module):
             self.head = CliffHead(num_input_features=n_feat)
         elif cfg.head_name == "pare":
             self.head = PareHead(num_input_features=n_feat, uncert_layer=cfg.uncert_layer)
+        elif cfg.head_name == "hmr2":
+            self.head = Hmr2Head(context_dim=n_feat)
         else:
             self.head = HmrHead(num_input_features=n_feat)
         head_channels = self.head.get_output_channels()
@@ -185,7 +192,7 @@ class POCO(nn.Module):
     def _forward(self, batch: dict[str, torch.Tensor], smpl: SmplParams) -> dict[str, Any]:
         cfg = self.cfg
         with spans.span(spans.BACKBONE):
-            features = self.backbone(batch["img"].permute(0, 3, 1, 2))
+            features = self.backbone(_trunk_input(self.backbone, batch["img"]))
         with spans.span(spans.HEAD):
             head_out = (self.head(features, batch["bbox_info"]) if cfg.head_name == "cliff"
                         else self.head(features))
@@ -250,6 +257,18 @@ class POCO(nn.Module):
         return output
 
 
+def _trunk_input(backbone: nn.Module, img: torch.Tensor) -> torch.Tensor:
+    """The NHWC crops as the trunk's NCHW input: for a trunk narrower than
+    the crop (the ViT's 192 of 256 columns), the centre columns, as
+    HMR 2.0 cuts them (`HMR2.forward_step`: `img[:, :, :, 32:-32]`)."""
+    x = img.permute(0, 3, 1, 2)
+    size = getattr(backbone, "img_size", None)
+    if size is not None and x.shape[-1] > size[1]:
+        cut = (x.shape[-1] - size[1]) // 2
+        x = x[..., cut:cut + size[1]]
+    return x
+
+
 def _full_precision(x: torch.Tensor) -> torch.Tensor:
     """fp32 for a bf16/fp16 tensor of an autocast region; fp32 and fp64 as they are."""
     return x if x.dtype in (torch.float32, torch.float64) else x.float()
@@ -301,6 +320,21 @@ def build_poco_pare(device="cuda", **overrides) -> POCO:
         uncert_inp_type="feat-pose",
         num_neurons=(512,),
         num_flow_layers=3,
+        gt_pose_cond=False,
+    )
+    defaults.update(overrides)
+    return _build(device, **defaults)
+
+
+def build_hmr2(device="cuda", **overrides) -> POCO:
+    """HMR 2.0 (configs/hmr2_vith.yaml: the ViT-H trunk at 256 x 192 and
+    the cross-attention decoder head, no uncertainty or flow head), in
+    eval mode on `device`."""
+    defaults = dict(
+        backbone="vit_h-hmr2",
+        img_res=256,
+        uncert_layer="",
+        loss_ver="mse",
         gt_pose_cond=False,
     )
     defaults.update(overrides)

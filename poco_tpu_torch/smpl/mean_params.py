@@ -16,8 +16,10 @@ import numpy as np
 _IDENTITY_6D = np.array([1.0, 0.0, 0.0, 1.0, 0.0, 0.0], np.float32)
 
 
-def load_mean_params(path: str | None = None, num_joints: int = 24):
-    """Returns (init_pose (J*6,), init_shape (10,), init_cam (3,))."""
+def load_mean_params(path: str | None = None, num_joints: int = 24,
+                     identity_6d: np.ndarray = _IDENTITY_6D):
+    """Returns (init_pose (J*6,), init_shape (10,), init_cam (3,)); without
+    the asset the pose is `identity_6d` (a head's own 6D layout) a joint."""
     path = path or os.environ.get("POCO_TPU_SMPL_MEAN_PARAMS", "")
     if path and os.path.exists(path):
         d = np.load(path)
@@ -25,7 +27,7 @@ def load_mean_params(path: str | None = None, num_joints: int = 24):
         shape = np.asarray(d["shape"], np.float32).reshape(-1)[:10]
         cam = np.asarray(d["cam"], np.float32).reshape(-1)[:3]
         return pose, shape, cam
-    pose = np.tile(_IDENTITY_6D, num_joints)
+    pose = np.tile(identity_6d, num_joints)
     shape = np.zeros(10, np.float32)
     cam = np.array([0.9, 0.0, 0.0], np.float32)
     return pose, shape, cam

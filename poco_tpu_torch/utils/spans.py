@@ -46,6 +46,10 @@ HEAD = "poco/head"
 SMPL = "poco/smpl"
 UNCERT = "poco/uncert"
 FLOW = "poco/flow"
+# each block of a ViT trunk (`models/backbones/vit.py`): its LayerNorm,
+# qkv, attention and projection; its LayerNorm, fc1, GELU and fc2
+VIT_ATTENTION = "poco/vit_attention"
+VIT_MLP = "poco/vit_mlp"
 # zero-length, under a request's root, when the request starts while the
 # card is still running the request before it: the host has run ahead
 AHEAD = "poco/ahead"
@@ -72,7 +76,8 @@ SYNC_FLOW_PARTS = "sync/flow_parts"        # models/heads/flow.py:FlowHead.forwa
 # the spans in which the host blocks on the card
 WAITS = (UPLOAD, SYNC_TRUE_HW, SYNC_NORM, SYNC_PARENTS, SYNC_VERTEX_IDS, SYNC_JOINT_MAP,
          SYNC_FOCAL, SYNC_FLOW_PARTS)
-LAYERS = (REQUEST, UPLOAD, CROP, BACKBONE, HEAD, SMPL, UNCERT, FLOW, TRAIN_STEP, AHEAD)
+LAYERS = (REQUEST, UPLOAD, CROP, BACKBONE, HEAD, SMPL, UNCERT, FLOW, TRAIN_STEP, AHEAD,
+          VIT_ATTENTION, VIT_MLP)
 
 
 def names() -> dict[str, bool]:

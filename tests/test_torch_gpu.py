@@ -10,8 +10,9 @@ same CUDA tensors at atol 1e-4 (fp32 sums of 24 terms in another order;
 the 3xTF32 split is within about 1e-6 of fp32), at the main path's shape,
 at the edges of the 16-row warp slices and the 128-vertex block tile,
 at odd sample counts (a pair with one sample), and at any 4-byte
-alignment of the tensors. The main paths (POCO-CLIFF, POCO-PARE, HMR)
-launch `skinning` once per SMPL forward and never `skinning_simt`; the
+alignment of the tensors. The main paths (POCO-CLIFF, POCO-PARE, HMR,
+HMR 2.0) launch `skinning` once per SMPL forward and never
+`skinning_simt`; a 128-box HMR 2.0 request makes no synchronizing call; the
 flow head's forward runs on the card. The backward kernel
 (`skinning_backward`, 3xTF32 tensor cores) and its fp32-FMA yardstick
 (`skinning_backward_simt`) are held to their plain version at every batch
@@ -52,6 +53,7 @@ from poco_tpu_torch.eval.runner import make_gendered_eval_step
 from poco_tpu_torch.models.backbones.common import Bottleneck
 from poco_tpu_torch.models.backbones.hrnet import HRNet
 from poco_tpu_torch.models.backbones.resnet import ResNet
+from poco_tpu_torch.models.backbones.vit import ViT
 from poco_tpu_torch.ops.rotation import axis_angle_to_rotmat
 from poco_tpu_torch.ops.skinning import (
     skinning,
@@ -334,6 +336,7 @@ NARROW = {
         "hrnet_w32", lambda: HRNet(width=8, variant="pose"), port_poco.build_poco_pare
     ),
     "hmr": ("resnet50", lambda: ResNet(Bottleneck, (1, 1, 1, 1)), port_poco.build_hmr),
+    "hmr2": ("vit_h", lambda: ViT(depth=2), port_poco.build_hmr2),
 }
 
 
@@ -344,7 +347,7 @@ def _narrow(monkeypatch, kind, device):
     return build(device=device)
 
 
-@pytest.mark.parametrize("kind", ["pare", "hmr"])
+@pytest.mark.parametrize("kind", ["pare", "hmr", "hmr2"])
 def test_pare_and_hmr_launch_skinning_once_per_request(cuda, monkeypatch, kind):
     model = _narrow(monkeypatch, kind, cuda)
     smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
@@ -362,6 +365,30 @@ def test_pare_and_hmr_launch_skinning_once_per_request(cuda, monkeypatch, kind):
     assert "pred_fullimg_cam_t" not in out
     for key in ("smpl_vertices", "pred_pose", "pred_cam"):
         assert bool(torch.isfinite(out[key]).all()), key
+
+
+def test_hmr2_request_never_syncs(cuda):
+    """HMR 2.0 at full width: after a warm-up, a 128-box request from numpy
+    dispatches without one synchronizing call (sync debug mode "error"),
+    launches `skinning` once and gives finite outputs."""
+    torch.manual_seed(0)
+    model = port_poco.build_hmr2(device=cuda)
+    smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
+    rng = np.random.RandomState(2)
+    image = rng.randint(0, 256, (720, 1280, 3)).astype(np.uint8)
+    centers = rng.uniform(100, 620, (128, 2)).astype(np.float32)
+    scales = rng.uniform(0.8, 3.0, 128).astype(np.float32)
+    detect_forward(model, smpl, image, centers, scales)["smpl_vertices"].cpu()
+    before = skinning.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = detect_forward(model, smpl, image, centers, scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert skinning.launches == before + 1
+    for key in ("smpl_vertices", "smpl_joints2d", "pred_pose", "pred_cam"):
+        assert bool(torch.isfinite(out[key]).all()), key
+    assert out["smpl_vertices"].shape == (128, 6890, 3)
 
 
 @pytest.mark.parametrize("kind", ["cliff", "pare"])

@@ -374,14 +374,16 @@ def test_state_dict_from_jax_leaves_flow_head_and_refuses_strangers():
 
 def test_port_builds_every_backbone_of_the_jax_registry_but_tiny():
     """Every backbone of the JAX registry, the tiny ones included since
-    they came with training, at the JAX package's output width."""
+    they came with training, at the JAX package's output width; beside
+    them the port alone has HMR 2.0's ViT-H (`vit_h`, 1280 wide)."""
     from poco_tpu.models.backbones.resnet import BACKBONE_INFO
 
-    assert set(port_poco.BACKBONES) == set(jax_poco.BACKBONES)
+    assert set(port_poco.BACKBONES) == set(jax_poco.BACKBONES) | {"vit_h"}
     for name, factory in port_poco.BACKBONES.items():
         with torch.device("meta"):
             net = factory()
-        assert net.out_channels == BACKBONE_INFO[name]["n_output_channels"], name
+        width = 1280 if name == "vit_h" else BACKBONE_INFO[name]["n_output_channels"]
+        assert net.out_channels == width, name
 
 
 def test_model_refuses_unported_paths():

@@ -24,7 +24,10 @@ are not overwritten by the next request; requests dispatched one ahead of
 their fetch start while the card runs the one before and open
 `poco/ahead`; and the device time under `poco/backbone`,
 `poco/head` and `poco/uncert` equals that under the benchmark's forward
-hooks (`gpubench/bench/trace.py:layer_ranges`) within 1%.
+hooks (`gpubench/bench/trace.py:layer_ranges`) within 1%, as for HMR 2.0
+under `poco/backbone` and `poco/head`, whose requests open 32
+`poco/vit_attention` and 32 `poco/vit_mlp` spans and launch `skinning`
+once.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ import torch
 from poco_tpu_torch.demo.tester import detect_forward
 from poco_tpu_torch.eval.runner import EVAL_STAGES, make_gendered_eval_step
 from poco_tpu_torch.losses.losses import LossConfig
-from poco_tpu_torch.models.poco import POCO, PocoConfig, build_poco_cliff, build_poco_pare
+from poco_tpu_torch.models.poco import (POCO, PocoConfig, build_hmr2, build_poco_cliff,
+                                        build_poco_pare)
 from poco_tpu_torch.smpl.assets import synthetic_smpl_model
 from poco_tpu_torch.train.state import ModuleAdam
 from poco_tpu_torch.train.step import TRAIN_STAGES, make_train_step
@@ -387,6 +391,34 @@ def test_model_spans_carry_the_benchmarks_device_time(cuda, kind):
                          (spans.UNCERT, "gpubench/uncert_head")):
         assert summary["calls"][ours] == summary["calls"][theirs] == 3
         assert ranges[ours] == pytest.approx(ranges[theirs], rel=0.01), ours
+
+
+@pytest.mark.gpu
+def test_hmr2_spans_carry_the_benchmarks_device_time(cuda):
+    """HMR 2.0 at full width, one profiled stretch of 3 requests of 32
+    boxes: `poco/backbone` and `poco/head` carry the device time of the
+    benchmark's hooks within 1%; each request opens 32 `poco/vit_attention`
+    and 32 `poco/vit_mlp` spans and launches `skinning` once."""
+    sys.path.insert(0, str(REPO / "gpubench"))
+    try:
+        from bench import trace
+    finally:
+        sys.path.remove(str(REPO / "gpubench"))
+    torch.manual_seed(0)
+    model = build_hmr2(device=cuda)
+    smpl = synthetic_smpl_model(num_verts=6890, device=cuda)
+    frame, centers, scales = request(boxes=32)
+    detect_forward(model, smpl, frame, centers, scales)
+    with trace.layer_ranges(model):
+        summary = trace.profile_stretch(
+            lambda: [detect_forward(model, smpl, frame, centers, scales) for _ in range(3)],
+            cuda)
+    ranges, calls = summary["ranges_s"], summary["calls"]
+    for ours, theirs in ((spans.BACKBONE, "gpubench/backbone"), (spans.HEAD, "gpubench/head")):
+        assert calls[ours] == calls[theirs] == 3
+        assert ranges[ours] == pytest.approx(ranges[theirs], rel=0.01), ours
+    assert calls[spans.VIT_ATTENTION] == calls[spans.VIT_MLP] == 32 * 3
+    assert calls["poco_tpu_torch::skinning"] == 3
 
 
 def fetch(out) -> dict[str, np.ndarray]:
