@@ -17,7 +17,13 @@ Phases, each of which raises (exit code 1) on failure:
      and 1723, B = 4 at V = 64); the backward kernel (`skinning_backward`, 3xTF32
      tensor cores) and its fp32-FMA yardstick (`skinning_backward_simt`)
      against their plain version at the same shapes (both gradients within
-     1e-5 x max |plain| + 1e-7);
+     1e-5 x max |plain| + 1e-7); 3b. the 3xTF32 linear kernel
+     (`linear_3xtf32`, HMR 2.0's ViT-H products) at the four products of
+     a ViT-H block (qkv; proj and fc2 with the residual; fc1 with GELU) at
+     24,576 rows (a 128-box request): each output's error against the
+     same epilogue over an fp64 product, scaled by |x| @ |w|^T + |b|
+     (+ |residual|), within 4 x that of `linear_reference` (cuBLAS fp32,
+     TF32 off) on the same inputs, a bar the same call in TF32 must fail;
   4. main path at full width: POCO-CLIFF (HRNet-W48-cls, configs/
      poco_cliff.yaml) with seeded random weights and a V=6890 synthetic
      SMPL answers `detect_forward` requests of 1, 8 and 128 boxes on a
@@ -254,6 +260,11 @@ Phases, each of which raises (exit code 1) on failure:
      of 32 rows, two floods of 2 s: rejections, each a 429 or 503 with a
      Retry-After, and the pending rows within the budget) and
      `--sweep-window 0,5` at 64x1;
+  4s. HMR 2.0 (ViT-H/16 trunk and the cross-attention SMPL decoder,
+     configs/hmr2_vith.yaml) with seeded random weights: one 128-box
+     `detect_forward` request launches `linear_3xtf32` 128 times (4 a
+     block, 32 blocks) and `skinning` once, with finite outputs of the
+     right shapes; no other main path launches `linear_3xtf32`;
   5. request time of POCO-CLIFF's `detect_forward` at 1 and 8 boxes
      (median, min, max); crops/s at batch 128, fp32: POCO-CLIFF with the
      kernel and, in turns, with the plain skinning in its place (the
@@ -272,7 +283,11 @@ Phases, each of which raises (exit code 1) on failure:
      inputs hot in L2 and cold (rotating over sets larger than L2),
      beside the card's bound for the same work; 7b. the backward kernel
      and its yardstick the same way at B = 64 and 128, in turns, beside
-     autograd through the plain forward.
+     autograd through the plain forward; 7c. `linear_3xtf32` (the weight's
+     split and the kernel, as the ViT calls it) at phase 3b's shapes, in
+     turns with `linear_reference` (the library's fp32 GEMM, which the
+     port no longer calls there), from CUDA events, beside the bound of
+     three TF32 products at the card's peak.
 Every phase boundary (`mark`) synchronizes with the card and names
 itself in a CUDA fault's message: a device-side assert surfaces at the
 first synchronization after the kernel that raised it. 4j has boundaries
@@ -281,8 +296,8 @@ each of (a)-(d).
 The yardsticks never launch on the main paths (checked in 4-4r, in
 every rank). The line before the last is the kernels' JSON record
 (`skinning`, `skinning_simt`, `skinning_backward`,
-`skinning_backward_simt`, launches summed over phases 4-4r and the
-ranks of 4i and 4n); the last line is
+`skinning_backward_simt`, `linear_3xtf32`, launches summed over phases
+4-4s and the ranks of 4i and 4n); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -340,12 +355,14 @@ from poco_tpu_torch.losses.segmentation import part_segmentation_loss
 from poco_tpu_torch.models.layers import get_heatmap_preds, grid_sample_bilinear
 from poco_tpu_torch.models.poco import (
     build_hmr,
+    build_hmr2,
     build_poco_cliff,
     build_poco_pare,
     compute_precision,
 )
 from poco_tpu_torch.ops import kernels
 from poco_tpu_torch.ops.camera import crop_cam_to_full_img_cam, weak_perspective_to_perspective
+from poco_tpu_torch.ops.linear import linear_3xtf32, linear_reference
 from poco_tpu_torch.ops.preprocess import normalize_image, preprocess_crops
 from poco_tpu_torch.ops.rotation import average_rotmats, axis_angle_to_rotmat, rotmat_to_quat
 from poco_tpu_torch.ops.skinning import (
@@ -593,7 +610,7 @@ SKIN_SHAPES = ((128, 6890), (64, 6890), (32, 6890), (16, 6890), (8, 6890), (4, 6
 KERNELS_UNDER_TEST = {"v2": skinning, "v1": skinning_simt}
 BACKWARD_UNDER_TEST = {"backward": skinning_backward, "backward_simt": skinning_backward_simt}
 YARDSTICKS = (skinning_simt, skinning_backward_simt)  # never launched on the main paths
-COUNTED = (skinning, skinning_backward, *YARDSTICKS)
+COUNTED = (skinning, skinning_backward, linear_3xtf32, *YARDSTICKS)
 
 
 def reset_counts() -> None:
@@ -639,6 +656,66 @@ def phase_kernel_check() -> dict[str, float]:
                       f"{float(r.abs().max()):.3e} + {BACKWARD_ATOL})")
                 check(err <= bar, f"{fn.__name__} {name} disagrees with its plain version: {err}")
                 worst[label] = max(worst.get(label, 0.0), err)
+    return worst
+
+
+# (name, K, N, epilogue) of a ViT-H block's four products, at the rows of
+# a 128-box request (192 tokens a crop)
+LINEAR_SHAPES = (("qkv", 1280, 3840, "none"), ("proj", 1280, 1280, "residual"),
+                 ("fc1", 1280, 5120, "gelu"), ("fc2", 5120, 1280, "residual"))
+LINEAR_ROWS = 128 * 192
+LINEAR_TOL = 4.0   # the kernel's scaled error, as a multiple of cuBLAS fp32's
+
+
+def linear_inputs(k: int, n: int, epilogue: str, seed: int):
+    """x ~ N(0, 1), w at nn.Linear's spread (U(+-1/sqrt(k))), b ~ 0.1 N(0, 1),
+    and a N(0, 1) residual for the residual epilogue."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(LINEAR_ROWS, k, device="cuda", generator=gen)
+    w = (2 * torch.rand(n, k, device="cuda", generator=gen) - 1) * k ** -0.5
+    b = 0.1 * torch.randn(n, device="cuda", generator=gen)
+    r = (torch.randn(LINEAR_ROWS, n, device="cuda", generator=gen)
+         if epilogue == "residual" else None)
+    return x, w, b, epilogue, r
+
+
+def phase_linear_check() -> dict[str, float]:
+    """Phase 3b: `linear_3xtf32` against the same epilogue over an fp64
+    product at each ViT-H shape, beside `linear_reference` in fp32 (the
+    bar, times LINEAR_TOL) and in TF32 (which must miss the bar); returns
+    the kernel's largest scaled error and its largest ratio to fp32's."""
+    print("== 3b. linear kernel check")
+    worst = {"max_scaled_err": 0.0, "ratio_to_fp32": 0.0}
+    for name, k, n, epilogue in LINEAR_SHAPES:
+        x, w, b, epilogue, r = linear_inputs(k, n, epilogue, seed=k + n)
+        want = linear_reference(x.double(), w.double(), b.double(), epilogue,
+                                None if r is None else r.double())
+        scale = x.double().abs() @ w.double().abs().T + b.double().abs()
+        if r is not None:
+            scale += r.double().abs()
+
+        def err(y):
+            return float(((y.double() - want) / scale).abs().max())
+
+        with torch.no_grad():
+            ours = err(linear_3xtf32(x, w, b, epilogue, r))
+            fp32 = err(linear_reference(x, w, b, epilogue, r))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = err(linear_reference(x, w, b, epilogue, r))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        bar = LINEAR_TOL * fp32
+        print(f"linear_3xtf32 {name} M={LINEAR_ROWS} K={k} N={n} {epilogue}: max scaled err "
+              f"{ours:.3e} (fp32 {fp32:.3e}, bar {LINEAR_TOL:g} x fp32 = {bar:.3e}; "
+              f"TF32 {tf32:.3e} = {tf32 / bar:.1f} x the bar)")
+        check(ours <= bar, f"linear_3xtf32 {name}: scaled error {ours:.3e} above {bar:.3e}")
+        check(tf32 > bar, f"linear_3xtf32 {name}: TF32 ({tf32:.3e}) passes the bar {bar:.3e}, "
+                          "which then cannot tell the kernel from TF32")
+        worst["max_scaled_err"] = max(worst["max_scaled_err"], ours)
+        worst["ratio_to_fp32"] = max(worst["ratio_to_fp32"], ours / fp32)
+        del x, w, b, r, want, scale
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -789,6 +866,44 @@ def phase_backward_timing(peaks: Peaks) -> dict:
                      "plain_ms": plain_hot, "autograd_plain_ms": auto_ms,
                      "bound_ms": bound["ms"], "bound_by": bound["by"]}
     return times
+
+
+def phase_linear_timing(peaks: Peaks) -> dict:
+    """Phase 7c: `linear_3xtf32` (split and kernel) and `linear_reference`
+    (cuBLAS fp32) at each ViT-H shape, in turns kernel, library, library,
+    kernel, from CUDA events, beside the bound: three TF32 products at the
+    card's peak, or the bytes read and written once. Returns the times by
+    shape, and fc1's (the largest product) at the top."""
+    print("== 7c. linear kernel timing")
+    by_shape = {}
+    with torch.no_grad():
+        for name, k, n, epilogue in LINEAR_SHAPES:
+            x, w, b, epilogue, r = linear_inputs(k, n, epilogue, seed=k + n)
+            fns = {"kernel": lambda: linear_3xtf32(x, w, b, epilogue, r),
+                   "library": lambda: linear_reference(x, w, b, epilogue, r)}
+            turns = {label: [] for label in fns}
+            for label in ("kernel", "library", "library", "kernel"):
+                turns[label].append(cuda_ms(fns[label], iters=40, warmup=5))
+            flops = 2 * LINEAR_ROWS * n * k
+            bytes_ = 4 * (LINEAR_ROWS * k + n * k + n
+                          + LINEAR_ROWS * n * (2 if r is not None else 1))
+            t_ops = 3 * flops / peaks.tf32_flop_per_s * 1e3
+            t_bytes = bytes_ / peaks.bytes_per_s * 1e3
+            bound = max(t_ops, t_bytes)
+            ms, library = statistics.fmean(turns["kernel"]), statistics.fmean(turns["library"])
+            by_shape[name] = {"M": LINEAR_ROWS, "K": k, "N": n, "epilogue": epilogue,
+                              "ms": ms, "library_ms": library, "bound_ms": bound,
+                              "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            print(f"linear_3xtf32 {name} M={LINEAR_ROWS} K={k} N={n} {epilogue}: bound "
+                  f"{bound:.4f} ms (3xTF32 operations {t_ops:.4f}, bytes {t_bytes:.4f}); "
+                  f"kernel {ms:.4f} ms (turns {turns['kernel'][0]:.4f}, "
+                  f"{turns['kernel'][1]:.4f}) = {bound / ms:.3f} of bound, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s; library F.linear fp32 {library:.4f} ms "
+                  f"= {library / ms:.2f} x the kernel")
+            del x, w, b, r, fns
+    torch.cuda.empty_cache()
+    return {**{key: by_shape["fc1"][key] for key in ("ms", "library_ms", "bound_ms", "bound_by")},
+            "by_shape": by_shape}
 
 
 def random_boxes(rng, n: int, h: int, w: int):
@@ -1127,6 +1242,26 @@ def phase_flow(ctx: dict, pare: dict, seed: int) -> Counter:
               f"{LOG_PHI_RTOL} x |log_phi|)")
         check(excess <= LOG_PHI_ATOL, f"{label} log_phi: card and CPU disagree")
     return total
+
+
+def phase_hmr2(ctx: dict, seed: int) -> Counter:
+    """Phase 4s: HMR 2.0 at full width, one 128-box request on the main
+    path: `linear_3xtf32` 4 times a ViT block, `skinning` once."""
+    print("== 4s. HMR 2.0 detect_forward at full width")
+    torch.manual_seed(seed + 6)
+    model = build_hmr2(device="cuda")
+    blocks = len(model.backbone.blocks)
+    print(f"model: {sum(p.numel() for p in model.parameters())} parameters, {blocks} ViT blocks")
+    rng, (h, w) = ctx["rng"], ctx["image"].shape[:2]
+    counts, (out,) = drive_requests("hmr2", model, ctx["smpl"], ctx["image"],
+                                    [random_boxes(rng, 128, h, w)])
+    check_shapes(out, 128, {"uncert_feat": (128, 1024)})
+    check(counts["linear_3xtf32"] == 4 * blocks,
+          f"hmr2: linear_3xtf32 must launch 4 times a block ({4 * blocks}), "
+          f"launched {counts['linear_3xtf32']}")
+    del model, out
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_hmr(ctx: dict, seed: int) -> Counter:
@@ -4859,7 +4994,8 @@ def main() -> int:
     card, peaks = phase_environment()
     phase_build()
     errs = phase_kernel_check()
-    mark("phases 1-3")
+    linear_errs = phase_linear_check()
+    mark("phases 1-3b")
     ctx = phase_main_path(args.seed)
     paths = {"cliff": ctx["counts"], "cliff_nonfinite": ctx["nonfinite_counts"]}
     mark("phase 4")
@@ -4900,9 +5036,13 @@ def main() -> int:
     mark("phase 4q")
     paths.update(phase_precision(ctx, pare, train, card))
     mark("phase 4r")
+    paths["hmr2"] = phase_hmr2(ctx, args.seed)
+    mark("phase 4s")
     launches = Counter()
     for counts in paths.values():
         launches.update(counts)
+    check(launches["linear_3xtf32"] == paths["hmr2"]["linear_3xtf32"],
+          "linear_3xtf32 ran on a main path other than HMR 2.0's")
     print(f"launches on the main paths: {dict(launches)}; by path "
           f"{ {path: dict(counts) for path, counts in paths.items()} }")
     phase_throughput(ctx, pare, args.reps, card)
@@ -4912,7 +5052,8 @@ def main() -> int:
     train["tmp"].cleanup()
     times = phase_kernel_timing(peaks)
     backward_times = phase_backward_timing(peaks)
-    mark("phases 7, 7b")
+    linear_times = phase_linear_timing(peaks)
+    mark("phases 7-7c")
     common = {"route": "cuda", "replaces": "poco_tpu/ops/pallas_lbs.py:87", "library_ms": None}
     records = [
         {"name": "skinning", "source": "poco_tpu_torch/csrc/skinning.cu", **common,
@@ -4935,6 +5076,10 @@ def main() -> int:
          "max_abs_err": errs["backward_simt"], "ms": backward_times["earlier_ms"],
          "cold_ms": backward_times["earlier_cold_ms"], "plain_ms": backward_times["plain_ms"],
          "bound_ms": backward_times["bound_ms"], "bound_by": backward_times["bound_by"]},
+        # the JAX package has no ViT: no TPU kernel to replace
+        {"name": "linear_3xtf32", "source": "poco_tpu_torch/csrc/linear_3xtf32.cu",
+         "route": "cuda", "replaces": None, "launches": launches["linear_3xtf32"],
+         **linear_errs, **linear_times},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({

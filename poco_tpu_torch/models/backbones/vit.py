@@ -6,13 +6,19 @@ Goel et al., "Humans in 4D" (ICCV 2023), `hmr2/models/backbones/vit.py`
 added to every patch row, 32 pre-norm blocks of 1280 (16 heads of 80, a
 5120-wide GELU MLP, LayerNorm eps 1e-6), a last LayerNorm, and the tokens
 back as a (B, 1280, 16, 12) map. drop_path (0.55 in training) is left out:
-the port runs the trunk in inference.
+the port runs the trunk in inference (on the card its linear layers'
+kernel has no backward and refuses inputs that need a gradient; on the
+CPU the trunk stays differentiable).
 
 Attention is `torch.nn.functional.scaled_dot_product_attention` (its
-scale 1/sqrt(80) is the published one). Each block's attention and MLP
-run in the spans `poco/vit_attention` and `poco/vit_mlp`. Module names
-are the published code's, so its state_dict keys are a ViTPose
-checkpoint's.
+scale 1/sqrt(80) is the published one). The four linear layers of a
+block (qkv, proj, fc1, fc2) run through `ops/linear.py:linear_3xtf32`
+with their `nn.Linear` modules' own weight and bias: on the card the
+3xTF32 tensor-core kernel, with fc1's GELU and the block's two residual
+adds (into proj and fc2) in its epilogue; on the CPU `F.linear` and the
+same epilogue in plain torch. Each block's attention and MLP run in the
+spans `poco/vit_attention` and `poco/vit_mlp`. Module names are the
+published code's, so its state_dict keys are a ViTPose checkpoint's.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.linear import linear_3xtf32
 from ...utils import spans
 
 
@@ -31,12 +38,13 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        """residual + proj(attention(qkv(x)))."""
         b, n, c = x.shape
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        out = F.scaled_dot_product_attention(q, k, v)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        qkv = linear_3xtf32(x, self.qkv.weight, self.qkv.bias)
+        q, k, v = qkv.reshape(b, n, 3, self.num_heads, c // self.num_heads).permute(2, 0, 3, 1, 4)
+        out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+        return linear_3xtf32(out, self.proj.weight, self.proj.bias, "residual", residual)
 
 
 class Mlp(nn.Module):
@@ -45,8 +53,10 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        """residual + fc2(gelu(fc1(x)))."""
+        hidden = linear_3xtf32(x, self.fc1.weight, self.fc1.bias, "gelu")
+        return linear_3xtf32(hidden, self.fc2.weight, self.fc2.bias, "residual", residual)
 
 
 class Block(nn.Module):
@@ -59,9 +69,9 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with spans.span(spans.VIT_ATTENTION):
-            x = x + self.attn(self.norm1(x))
+            x = self.attn(self.norm1(x), x)
         with spans.span(spans.VIT_MLP):
-            x = x + self.mlp(self.norm2(x))
+            x = self.mlp(self.norm2(x), x)
         return x
 
 
@@ -93,7 +103,7 @@ class ViT(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(x)
         b, c, hp, wp = x.shape
-        x = x.flatten(2).transpose(1, 2)
+        x = x.flatten(2).transpose(1, 2).contiguous()   # (B, tokens, C) rows for the op
         x = x + self.pos_embed[:, 1:] + self.pos_embed[:, :1]
         for block in self.blocks:
             x = block(x)

@@ -22,6 +22,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 SOURCES = {
+    "linear_3xtf32": "linear_3xtf32.cu",
     "skinning": "skinning.cu",
     "skinning_backward": "skinning_backward.cu",
     "skinning_backward_simt": "skinning_backward_simt.cu",
